@@ -1,0 +1,4 @@
+"""Matching subpackage."""
+from sgtd_tpu_torch.match.search import CandidateSet, candidate_search  # noqa: F401
+from sgtd_tpu_torch.match.verify import VerifyResult, verify_candidates  # noqa: F401
+from sgtd_tpu_torch.match.pipeline import LocalizationResult, localize, localize_descriptors  # noqa: F401

@@ -1,0 +1,73 @@
+"""B2 ``expand_jobs``: the ragged expansion from jobs to scan slots (port of
+sgtd_tpu.ops.pallas_expand.expand_jobs and of the XLA
+``match.search._expand`` path; kernel in ``csrc/expand.cu``).
+
+``out[b, c, slot] = payload[b, job(slot), c]`` over contiguous job
+segments of lengths ``length``, truncated at ``l_max``; slots past the
+total are don't-care. A CUDA tensor launches the hand-written kernel; a
+CPU tensor takes the plain PyTorch version. There is no fallback between
+the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sgtd_tpu_torch.ops import _build
+
+# Kernel launches since the last reset (the main-path check reads it).
+LAUNCHES = 0
+
+
+def job_offsets(length: torch.Tensor) -> torch.Tensor:
+    """(B, NJ) lengths -> (B, NJ + 1) int32 exclusive prefix sums."""
+    zero = torch.zeros(length.shape[:-1] + (1,), dtype=torch.int32, device=length.device)
+    return torch.cat([zero, torch.cumsum(length, -1, dtype=torch.int32)], dim=-1)
+
+
+def expand_jobs_plain(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
+    """Plain version: the reference's delta scatter at the segment heads,
+    then one int32 cumsum per channel. Heads at or past ``l_max`` drop;
+    the telescoping sum gives each slot its job's value even where empty
+    jobs share a head, and int32 wrap-around cancels in it."""
+    heads = job_offsets(length)[..., :-1]  # (B, NJ)
+    delta = torch.cat([payload[:, :1], payload[:, 1:] - payload[:, :-1]], dim=1)
+    keep = heads < l_max
+    b = payload.shape[0]
+    buf = torch.zeros((b, l_max, payload.shape[2]), dtype=torch.int32, device=payload.device)
+    rows = torch.arange(b, device=payload.device)[:, None].expand_as(heads)
+    buf.index_put_((rows[keep], heads[keep].long()), delta[keep], accumulate=True)
+    return torch.cumsum(buf, dim=1, dtype=torch.int32).transpose(1, 2).contiguous()
+
+
+def expand_jobs(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
+    """length (B, NJ) int32, payload (B, NJ, C) int32 -> (B, C, l_max) int32."""
+    if length.device.type == "cpu":
+        return expand_jobs_plain(length, payload, l_max)
+    return _expand_jobs_cuda(length, payload, l_max)
+
+
+def _expand_jobs_cuda(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
+    global LAUNCHES
+    if length.device.type != "cuda" or payload.device != length.device:
+        raise ValueError(f"expand_jobs: CUDA tensors required, got {length.device}/{payload.device}")
+    if length.dtype != torch.int32 or payload.dtype != torch.int32:
+        raise TypeError(f"expand_jobs: int32 inputs, got {length.dtype}/{payload.dtype}")
+    if length.dim() != 2 or payload.dim() != 3 or payload.shape[:2] != length.shape:
+        raise ValueError(
+            f"expand_jobs: (B, NJ) and (B, NJ, C), got {tuple(length.shape)}/{tuple(payload.shape)}"
+        )
+    if l_max <= 0:
+        raise ValueError(f"expand_jobs: l_max {l_max} must be positive")
+    b, nj, c = payload.shape
+    offsets = job_offsets(length).contiguous()
+    payload = payload.contiguous()
+    out = torch.empty((b, c, l_max), dtype=torch.int32, device=length.device)
+    lib = _build.library()
+    rc = lib.sgtd_expand_jobs(
+        offsets.data_ptr(), payload.data_ptr(), out.data_ptr(), b, nj, c, l_max,
+        torch.cuda.current_stream(length.device).cuda_stream,
+    )
+    _build.check(rc, "sgtd_expand_jobs")
+    LAUNCHES += 1
+    return out
