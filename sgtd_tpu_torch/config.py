@@ -9,6 +9,7 @@ from sgtd_tpu.config import (  # noqa: F401
     DEFAULT_CONFIG,
     CapacityConfig,
     DescriptorConfig,
+    GicpConfig,
     SearchConfig,
     SGTDConfig,
 )

@@ -2,9 +2,11 @@
 
 Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 ``np.asarray`` takes) to the port's tensors on an explicit device and
-back, and reads the reference's on-disk descriptor-DB format (v2), so a
-map built by ``sgtd_tpu`` is served by the port. The reference's uint32
-fields (``packed2``, ``bucket_table``) cross as their int32 bit patterns.
+back, carries keyframe clouds, masks and GICP covariances onto a device
+(padded to the DB's frame count), and reads the reference's on-disk
+descriptor-DB format (v2), so a map built by ``sgtd_tpu`` is served by
+the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
+cross as their int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -61,6 +63,40 @@ def db_to_numpy(db: DescriptorDB) -> dict:
         a = getattr(db, f).cpu().numpy()
         out[f] = a.view(np.uint32) if f in _UINT32_FIELDS else a
     return out
+
+
+def map_clouds_to_device(clouds, masks, covs=None, device="cpu", f_pad: int | None = None):
+    """Keyframe clouds (F, P, 3), masks (F, P) and covariances
+    (F, P, 3, 3) | None as tensors on ``device``, padded with empty clouds
+    (zero points, mask False, identity covariances, as the reference's
+    ``point_covariances`` gives them) to ``f_pad`` rows, the row count of
+    the DB's ``frame_poses`` that ``localize_refined`` requires."""
+    clouds = np.asarray(clouds, np.float32)
+    masks = np.asarray(masks, bool)
+    pad = 0 if f_pad is None else f_pad - clouds.shape[0]
+    if pad < 0:
+        raise ValueError(f"{clouds.shape[0]} clouds exceed f_pad {f_pad}")
+    clouds = np.pad(clouds, ((0, pad), (0, 0), (0, 0)))
+    masks = np.pad(masks, ((0, pad), (0, 0)))
+    out = [_to_tensor(clouds, device), _to_tensor(masks, device)]
+    if covs is not None:
+        covs = np.asarray(covs, np.float32)
+        eye = np.broadcast_to(np.eye(3, dtype=np.float32), (pad,) + covs.shape[1:])
+        out.append(_to_tensor(np.concatenate([covs, eye]), device))
+    else:
+        out.append(None)
+    return tuple(out)
+
+
+def to_numpy(result):
+    """A port result (GicpResult, RefinedResult, LocalizationResult, ... —
+    NamedTuples of tensors, nested ones included) with NumPy fields."""
+    return type(result)(
+        *(
+            to_numpy(v) if isinstance(v, tuple) else v.detach().cpu().numpy()
+            for v in result
+        )
+    )
 
 
 def load_database(path: str, device) -> DescriptorDB:

@@ -1,9 +1,12 @@
-"""One-shot localization (port of sgtd_tpu.match.pipeline, descriptor-only).
+"""One-shot localization (port of sgtd_tpu.match.pipeline).
 
 The reference's ``SearchLoop``: build the query's triangle descriptors,
 vote for candidate keyframes, verify every candidate, and return the
-score-sorted candidate list with rigid transforms — here for a batch of
-query graphs at once (leading axis B) in place of the reference's vmap.
+score-sorted candidate list with rigid transforms (``localize``); then
+GICP-align the query cloud against the top candidates' keyframe clouds
+and pick one (``localize_refined``, the full headline configuration) —
+here for a batch of query graphs at once (leading axis B) in place of
+the reference's vmap.
 """
 
 from __future__ import annotations
@@ -12,13 +15,14 @@ from typing import NamedTuple
 
 import torch
 
-from sgtd_tpu_torch.config import SGTDConfig
+from sgtd_tpu_torch.config import GicpConfig, SGTDConfig
 from sgtd_tpu_torch.db.database import DescriptorDB
 from sgtd_tpu_torch.desc.triangles import Descriptors, build_descriptors
 from sgtd_tpu_torch.geom import se3
 from sgtd_tpu_torch.graph.types import SemanticGraph
-from sgtd_tpu_torch.match.search import candidate_search
-from sgtd_tpu_torch.match.verify import verify_candidates
+from sgtd_tpu_torch.match.search import CandidateSet, candidate_search
+from sgtd_tpu_torch.match.verify import VerifyResult, verify_candidates
+from sgtd_tpu_torch.refine.gicp import gicp_rerank
 from sgtd_tpu_torch.utils import disable_tf32
 
 
@@ -71,7 +75,17 @@ def localize_descriptors(
     disable_tf32()
     cand = candidate_search(db, query, config.desc, config.search, config.caps)
     ver = verify_candidates(db, query, cand, config.search)
+    return rank_candidates(db, query, cand, ver, config)
 
+
+def rank_candidates(
+    db: DescriptorDB,
+    query: Descriptors,
+    cand: CandidateSet,
+    ver: VerifyResult,
+    config: SGTDConfig = SGTDConfig(),
+) -> LocalizationResult:
+    """Sort verified candidates by score and compose their world poses."""
     order = torch.argsort(ver.scores, dim=-1, descending=True, stable=True)
     take = lambda x: torch.gather(
         x, 1, order.reshape(order.shape + (1,) * (x.dim() - 2)).expand_as(x)
@@ -100,3 +114,101 @@ def localize_descriptors(
         num_descriptors=query.count,
         truncated=cand.truncated,
     )
+
+
+class RefinedResult(NamedTuple):
+    """LocalizationResult plus the GICP-refined world pose, per query.
+
+    pose:    (B, 4, 4) float32 — refined when accepted, else the top
+             candidate's descriptor pose (ref semantic_graph_localization.cpp:747).
+    refined: (B,) bool — a refinement was accepted.
+    fitness: (B,) float32 — raw fitness of the picked candidate.
+    result:  the batched LocalizationResult.
+    """
+
+    pose: torch.Tensor
+    refined: torch.Tensor
+    fitness: torch.Tensor
+    result: LocalizationResult
+
+
+def localize_refined(
+    db: DescriptorDB,
+    graphs: SemanticGraph,
+    query_clouds: torch.Tensor,
+    query_masks: torch.Tensor,
+    map_clouds: torch.Tensor,
+    map_masks: torch.Tensor,
+    map_covs: torch.Tensor | None = None,
+    config: SGTDConfig = SGTDConfig(),
+    rerank_k: int = 4,
+) -> RefinedResult:
+    """Localization with the multi-candidate GICP rerank (the reference's
+    SG-STD-gicp-multi, candidate loop semantic_graph_localization.cpp:651-723).
+
+    The top ``rerank_k`` candidates of each query align at once and
+    :func:`rerank_pick` chooses among them. graphs: a batch of B query
+    graphs; query_clouds (B, S, 3) / query_masks (B, S); map_clouds
+    (F_pad, P, 3) / map_masks (F_pad, P) / map_covs (F_pad, P, 3, 3) |
+    None: the keyframe clouds indexed by frame id, with one row per row of
+    ``db.frame_poses``.
+    """
+    disable_tf32()
+    if config.gicp.engine == "vgicp":
+        raise NotImplementedError(
+            "engine='vgicp' is not ported yet (ROADMAP queue 1 item 6, refine/vgicp.py)"
+        )
+    f_pad = db.frame_poses.shape[0]
+    for name, x in (("map_clouds", map_clouds), ("map_masks", map_masks), ("map_covs", map_covs)):
+        if x is not None and x.shape[0] != f_pad:
+            raise ValueError(
+                f"{name} has {x.shape[0]} rows; the DB's frame_poses has {f_pad} "
+                "(pad the map tensors to the DB's frame count)"
+            )
+    res = localize(db, graphs, config)
+    frames_k = res.frames[:, :rerank_k].long()  # (B, K) score-sorted
+    inits = se3.rt_to_mat(res.rot[:, :rerank_k], res.trans[:, :rerank_k])
+    out = gicp_rerank(
+        query_clouds, query_masks, map_clouds[frames_k], map_masks[frames_k], inits,
+        config.gicp, tgt_covs=None if map_covs is None else map_covs[frames_k],
+    )
+    pick, use, refined_poses = rerank_pick(
+        out.fitness_gated, out.inlier_frac, db.frame_poses[frames_k] @ out.transform,
+        res.poses[:, :rerank_k], res.found, config.gicp,
+    )
+    rows = torch.arange(pick.shape[0], device=pick.device)
+    return RefinedResult(
+        pose=torch.where(use[:, None, None], refined_poses[rows, pick], res.poses[:, 0]),
+        refined=use,
+        fitness=out.fitness[rows, pick],
+        result=res,
+    )
+
+
+def rerank_pick(fitness_gated, inlier_frac, refined_poses, init_poses, found, gcfg: GicpConfig):
+    """Candidate pick and divergence guard of the GICP rerank (reference
+    ``sgtd_tpu.match.pipeline.rerank_pick``).
+
+    A refined pose further than max_refine_shift_m / max_refine_rot_deg
+    from its OWN candidate's descriptor pose is excluded (a wrong-basin
+    ICP); among the rest the pick maximises ``inlier_frac - 0.1 *
+    fitness_gated`` (first maximum on ties). As in the reference,
+    candidates that failed verification are scored too.
+
+    fitness_gated/inlier_frac (B, K); refined_poses/init_poses
+    (B, K, 4, 4); found (B,). Returns (pick (B,) int64, use (B,) bool,
+    refined_poses).
+    """
+    shift = torch.linalg.vector_norm(refined_poses[..., :3, 3] - init_poses[..., :3, 3], dim=-1)
+    dR = refined_poses[..., :3, :3] @ init_poses[..., :3, :3].transpose(-1, -2)
+    tr = torch.clamp((dR.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) * 0.5, -1.0, 1.0)
+    rot_deg = torch.rad2deg(torch.arccos(tr))
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
+    guard_ok = (shift <= f32(gcfg.max_refine_shift_m)) & (rot_deg <= f32(gcfg.max_refine_rot_deg))
+    score = torch.where(
+        guard_ok, inlier_frac - f32(0.1) * fitness_gated,
+        torch.full_like(inlier_frac, -float("inf")),
+    )
+    pick = score.argmax(-1)
+    use = found & guard_ok.any(-1)
+    return pick, use, refined_poses

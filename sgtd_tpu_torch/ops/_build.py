@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``sgtd_tpu_torch/csrc/*.cu``).
 
-nvcc compiles every source into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), at first use; ctypes loads it. A file
+nvcc compiles every source for ``sm_90a`` (Hopper) at first use, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface; ctypes loads it. A file
 with a plain C interface builds in seconds, where one that includes
 PyTorch's headers takes minutes. The library lands in
 ``build/sgtd_tpu_torch/`` under a name that carries a hash of the sources
@@ -24,10 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
-SOURCES = ("probe.cu", "expand.cu", "verify.cu")
+SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,10 @@ SIGNATURES = {
     "sgtd_expand_jobs": (_P, _P, _P, _I, _I, _I, _I, _P),
     # rot, t, vq, vdb, pair_valid, out, N, H, P, thr2, stream
     "sgtd_hypothesis_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    # query, ref, out_idx, out_sqd, P, N, T, stream
+    "sgtd_nn1": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # query, ref, out_idx, P, N, T, k, stream
+    "sgtd_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,27 +74,40 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists.
 
-    nvcc writes to a temporary name that is renamed into place, so
-    concurrent builds never load a half-written file. The compiler's
-    output (ptxas register and shared-memory use) is kept beside the
-    library as ``.log``.
+    Each source compiles in its own nvcc process (all run at once) into a
+    temporary directory; the link writes a temporary name that is renamed
+    into place, so concurrent builds never load a half-written file. The
+    compilers' output (ptxas register and shared-memory use) is kept
+    beside the library as ``.log``.
     """
     out = BUILD_DIR / f"libsgtd_kernels_{_digest()}.so"
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            lib = Path(tmp) / out.name
+            link = subprocess.run(
+                [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(link.stdout + link.stderr)
+        text = "".join(logs)
+        out.with_suffix(".log").write_text(text)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        os.replace(lib, out)
     return out
 
 

@@ -1,4 +1,10 @@
-"""Closed-form batched 3x3/4x4 linear algebra (port of sgtd_tpu.ops.linalg3).
+"""Closed-form batched 3x3/4x4/6x6 linear algebra (port of
+sgtd_tpu.ops.linalg3).
+
+``inv3x3`` is the adjugate inverse; ``sym_eig3x3`` the analytic
+(trigonometric Cardano) eigen-decomposition of symmetric 3x3 matrices
+with cross-product eigenvectors; ``chol_solve6`` the unrolled Cholesky
+solve of the 6x6 normal equations of the registration engines.
 
 ``kabsch`` is the reference's QCP solve: Horn's quaternion method, the
 largest eigenvalue of the 4x4 K matrix by 12 fixed Newton steps on its
@@ -10,9 +16,34 @@ expression order so the two agree to float32 rounding.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from sgtd_tpu_torch.utils import sqrt_rn
+
 _EPS = 1e-12
+
+
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Adjugate-based inverse of (..., 3, 3)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() > _EPS, det, _EPS)
+    adj = torch.stack(
+        [
+            torch.stack([A, -(b * i - c * h), b * f - c * e], dim=-1),
+            torch.stack([B, a * i - c * g, -(a * f - c * d)], dim=-1),
+            torch.stack([C, -(a * h - b * g), a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
 
 
 def det3x3(m: torch.Tensor) -> torch.Tensor:
@@ -127,3 +158,82 @@ def kabsch(
     )
     t = mu_r[..., 0, :] - torch.einsum("...ij,...j->...i", rot, mu_s[..., 0, :])
     return rot, t
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / (sqrt_rn((v * v).sum(-1, keepdim=True)) + _EPS)
+
+
+def sym_eig3x3(m: torch.Tensor):
+    """Eigen-decomposition of symmetric (..., 3, 3): (eigenvalues (..., 3)
+    ascending, eigenvectors (..., 3, 3) as matching columns). Cardano for
+    the values; for the smallest and largest, the largest cross product of
+    two rows of M - e I; the middle vector completes the frame."""
+    dtype = m.dtype
+    m = m.to(torch.float32)
+    q = m.diagonal(dim1=-2, dim2=-1).sum(-1) / 3.0
+    eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    a = m - q[..., None, None] * eye
+    p2 = (a * a).sum(dim=(-2, -1)) / 6.0
+    p = sqrt_rn(p2 + _EPS)
+    # det(A / p) / 2, the cosine of three times the angle.
+    r = torch.clamp(det3x3(a) / (2.0 * (p * p * p) + _EPS), -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    e3 = q + 2.0 * p * torch.cos(phi)
+    e1 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e2 = 3.0 * q - e1 - e3
+    vals = torch.stack([e1, e2, e3], dim=-1)
+
+    def eigvec(ev):
+        pa = m - ev[..., None, None] * eye
+        r0, r1, r2 = pa[..., 0, :], pa[..., 1, :], pa[..., 2, :]
+        cand = torch.stack([_cross(r0, r1), _cross(r0, r2), _cross(r1, r2)], dim=-2)
+        best = (cand * cand).sum(-1).argmax(-1)
+        v = torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+        return _unit(v)
+
+    v1 = eigvec(e1)
+    v3 = eigvec(e3)
+    v3 = _unit(v3 - (v3 * v1).sum(-1, keepdim=True) * v1)
+    v2 = _cross(v3, v1)
+    vecs = torch.stack([v1, v2, v3], dim=-1)
+    return vals.to(dtype), vecs.to(dtype)
+
+
+def chol_solve6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Solve H x = g for SPD 6x6 H by an unrolled Cholesky factorisation
+    (the se(3) normal equations, ref lsq_registration_impl.hpp:110,137).
+
+    H (..., 6, 6), g (..., 6) -> x (..., 6). The diagonal is clamped at
+    1e-30 so a fully masked problem (H = 0) solves to finite values.
+    """
+    n = 6
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = H[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                L[i][j] = sqrt_rn(torch.clamp(s, min=1e-30))
+            else:
+                L[i][j] = s / L[j][j]
+    y = [None] * n
+    for i in range(n):
+        s = g[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x, dim=-1)
