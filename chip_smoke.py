@@ -1,6 +1,6 @@
 """Drive the PyTorch port's localization paths on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--scale-frames N]
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -12,8 +12,10 @@ Phases (any failure ends the run with a non-zero exit):
    inputs seeded from NumPy: B1 and B2 must be equal, B3 equal except on
    pairs whose float64 d^2 lies within 1e-3 of thr^2; B4 and B5 equal
    except on rows whose kernel and plain picks lie within 1 ulp of each
-   other (at most 0.1% of rows). B1-B3: median times of kernel and plain
-   version over 20 synchronized runs each; B4-B5: CUDA-event times.
+   other (at most 0.1% of rows); B6 equal at the 5,000-keyframe scan
+   (8 x 1,802,240 slots) for f_pad 5,000 and 20,000, and at f_pad 65,544
+   (its global-memory branch). B1-B3, B6: median times of kernel and
+   plain version over 20 synchronized runs each; B4-B5: CUDA-event times.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
@@ -30,6 +32,25 @@ Phases (any failure ends the run with a non-zero exit):
    with poses within 5e-3 m and 1e-3 rad. Prints the refined share, the
    pose RMSE, the stage split of one chunk, map-covariance seconds and
    steady-state scans/s.
+5. The large map: the world of ``tools/scale_bench.py`` (seed 2027,
+   ``--scale-frames`` keyframes, default 5,000, extent max(400, 32 sqrt(N))
+   m, 32 queries with centre noise 0.05 m and dropout 0.1), descriptors in
+   chunks, DB build and scan calibration under a 2^23-slot ceiling, then
+   ``localize`` in chunks of 8. Gates, each on the same DB and queries:
+   (1) the default config: zero TRUNC_SCAN, SR >= 0.95, B6 launched and
+   B1 not; (2) candidate-major pair lists (sel_max_scan_slots 0): the
+   same candidates and votes, SR >= 0.95; (3) one chunk without the
+   bucket table (bisection): frames and votes equal to (1)'s; (4) one
+   chunk under a cap far below its scan (TRUNC_SCAN set), then
+   ``localize_exact``: frames and votes equal to (2)'s; (5) one chunk on
+   the DB padded to 65,544 frames (frame-id gathers, argsort pair
+   grouping, B6's global branch): the live candidates' frames, votes and
+   scores equal to (1)'s; (6) one chunk with B6 patched to its plain
+   version: frames, votes, found and best_frame equal. Prints rows,
+   f_pad, scan slots, bucket cap, DB build seconds, SR, a stage split,
+   steady-state scans/s and the SHA-256 of (1)'s candidate frames (int32)
+   and votes (float32) in (votes desc, frame asc) order; at 5,000
+   keyframes the rows and the digest must equal the JAX reference's.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -37,7 +58,11 @@ The line before the last holds the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -54,10 +79,21 @@ SR_GATE = 0.95
 T_START = time.perf_counter()
 CLOUD_PTS, SRC_PTS, RERANK_K = 4096, 1024, 4  # bench.py:170-195
 POS_TOL_M, ROT_TOL_RAD = 5e-3, 1e-3
-# (module, counter) of every kernel, in B1-B5 order.
+# The large map (tools/scale_bench.py:40-112).
+SCALE_SEED, SCALE_QUERIES, SCALE_CHUNK, SCALE_SAMPLE = 2027, 32, 8, 16
+SCALE_SLOT_CEILING, SCALE_BUILD_CHUNK, WIDE_F_PAD = 1 << 23, 256, 65544
+# The JAX reference on the 5,000-keyframe world (sgtd_tpu on the CPU, the
+# pipeline of tools/scale_bench.py): DB rows and the SHA-256 of gate (1)'s
+# candidates (candidates_sha256). tests/test_torch_scale.py's slow
+# test_reference_5k_digest computes both again from sgtd_tpu.
+REFERENCE_5K = {
+    "rows": 9775363,
+    "sha256": "d590f066fbcb4955314fb095f2f448774c92906c17e31ca3663d8ef174fe61a9",
+}
+# (module, counter) of every kernel, in B1-B6 order.
 COUNTERS = (
     ("probe", "LAUNCHES"), ("expand", "LAUNCHES"), ("verify", "LAUNCHES"),
-    ("nn", "NN1_LAUNCHES"), ("nn", "KNN_LAUNCHES"),
+    ("nn", "NN1_LAUNCHES"), ("nn", "KNN_LAUNCHES"), ("probe", "WIDE_LAUNCHES"),
 )
 
 
@@ -292,6 +328,35 @@ def check_kernels(dev, card: str):
     # The record carries the per-chunk shape (16 x 1,024); the map build's
     # is logged above.
     records.append(("knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", max(errs), *times[1]))
+
+    # B6 frame_votes_wide: the 5,000-keyframe scan (8 x 1,802,240 slots)
+    # at f_pad 5,000 and 20,000, and the global-memory branch at 65,544.
+    # Half the slots vote for 50 frames (real scans pile up on a few);
+    # ids -1, f_pad (the sentinel) and f_pad + 1 count nothing.
+    errs, times = [], []
+    for f_pad, l in ((5000, 1802240), (20000, 1802240), (WIDE_F_PAD, 262144)):
+        b = SCALE_CHUNK
+        hit = torch.from_numpy(rng.uniform(size=(b, l)) < 0.3).to(dev)
+        frame = rng.integers(-1, f_pad + 2, (b, l), dtype=np.int32)
+        hot = rng.uniform(size=(b, l)) < 0.5
+        frame[hot] = rng.integers(0, 50, int(hot.sum()), dtype=np.int32)
+        frame = torch.from_numpy(frame).to(dev)
+        got = probe.frame_votes_wide(hit, frame, f_pad)
+        want = probe.frame_votes_wide_plain(hit, frame, f_pad)
+        err = (got - want).abs().max().item()
+        if err != 0:
+            fail(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad} differs from its plain version "
+                 f"(max |err| {err})")
+        ms, plain_ms = median_times(
+            lambda: probe.frame_votes_wide(hit, frame, f_pad),
+            lambda: probe.frame_votes_wide_plain(hit, frame, f_pad),
+        )
+        log(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad}: equal; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms [{card}]")
+        errs.append(err)
+        times.append((ms, plain_ms))
+    # The record carries the 5,000-keyframe shape, the one phase 5 runs.
+    records.append(("frame_votes_wide", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:145", max(errs), *times[0]))
     return records
 
 
@@ -470,7 +535,7 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
         for q, s in zip(chunks, sl)
     ]
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = read_counts()[:5]
     log(f"refined path kernel launches (B1-B5): {launches}")
     if min(launches) <= 0:
         fail(f"a kernel of the refined path was never launched: {launches}")
@@ -538,7 +603,220 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     return launches
 
 
+def scale_world(num_map: int):
+    """The large-map world of tools/scale_bench.py:40-59 (host graphs)."""
+    from sgtd_tpu_torch.config import SGTDConfig
+    from sgtd_tpu_torch.data.synthetic import make_world, observe
+
+    cfg = SGTDConfig()
+    rng = np.random.default_rng(SCALE_SEED)
+    extent = max(400.0, 8.0 * np.sqrt(num_map) * 4.0)
+    world = make_world(rng, extent_m=extent, num_map_frames=num_map, num_queries=SCALE_QUERIES)
+    maps = [observe(world, p, cfg, rng) for p in world.map_poses]
+    queries = [observe(world, p, cfg, rng, center_noise_m=0.05, dropout=0.1) for p in world.query_poses]
+    return cfg, extent, maps, queries
+
+
+def host_candidates(results):
+    """(Q, C) candidate frames and votes of chunked results, on the host."""
+    return tuple(torch.cat([getattr(r, n) for r in results]).cpu().numpy() for n in ("frames", "votes"))
+
+
+def canonical_candidates(frames, votes):
+    """(Q, C) candidate frames and votes in (votes desc, frame asc) order,
+    the candidate search's own order whatever the verification scores:
+    int32 and float32 NumPy arrays."""
+    frames, votes = np.asarray(frames, np.int32), np.asarray(votes, np.float32)
+    order = np.stack([np.lexsort((f, -v)) for f, v in zip(frames, votes)])
+    return np.take_along_axis(frames, order, 1), np.take_along_axis(votes, order, 1)
+
+
+def candidates_sha256(frames, votes) -> str:
+    """SHA-256 of the canonical int32 frames and float32 votes."""
+    f, v = canonical_candidates(frames, votes)
+    return hashlib.sha256(f.tobytes() + v.tobytes()).hexdigest()
+
+
+def scale_stages(db, graphs, cfg):
+    """``localize`` on one chunk stage by stage, synchronized after each:
+    ms per stage (probe is the first part of search, timed apart)."""
+    from sgtd_tpu_torch.desc.triangles import build_descriptors
+    from sgtd_tpu_torch.match.pipeline import rank_candidates
+    from sgtd_tpu_torch.match.search import candidate_search, probe_and_hits
+    from sgtd_tpu_torch.match.verify import verify_candidates
+
+    use_sel = cfg.caps.max_scan_slots <= cfg.caps.sel_max_scan_slots
+    ms = {}
+    query = build_descriptors(graphs, cfg.desc, cfg.caps)
+    ms["descriptors"] = timed_ms(lambda: build_descriptors(graphs, cfg.desc, cfg.caps))
+    ms["probe"] = timed_ms(lambda: probe_and_hits(db, query, cfg.desc, cfg.search, cfg.caps, with_sel=use_sel))
+    out = {}
+    ms["search"] = timed_ms(lambda: out.setdefault("c", candidate_search(db, query, cfg.desc, cfg.search, cfg.caps)))
+    ms["verify"] = timed_ms(lambda: rank_candidates(
+        db, query, out["c"], verify_candidates(db, query, out["c"], cfg.search), cfg))
+    return ms
+
+
+def large_map(dev, card: str, num_map: int) -> int:
+    """Phase 5: the large map through the port's public entry points.
+    Returns B6's launches in gate (1)'s run."""
+    from sgtd_tpu_torch.db.database import tuned_config
+    from sgtd_tpu_torch.db.device_build import build_database_calibrated
+    from sgtd_tpu_torch.desc.triangles import build_descriptors
+    from sgtd_tpu_torch.eval.metrics import success_rate
+    from sgtd_tpu_torch.eval.runner import build_descriptors_chunked
+    from sgtd_tpu_torch.graph.types import SemanticGraph, stack_graphs
+    from sgtd_tpu_torch.interop import pad_frames
+    from sgtd_tpu_torch.match.pipeline import localize, localize_exact
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN, fit_scan_slots
+    from sgtd_tpu_torch.ops import probe
+
+    t0 = time.perf_counter()
+    cfg, extent, maps, queries = scale_world(num_map)
+    log(f"large map: {num_map} keyframes, extent {extent:.0f} m, {SCALE_QUERIES} queries; "
+        f"world and graphs {time.perf_counter() - t0:.2f} s (host)")
+    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, max_scan_slots=SCALE_SLOT_CEILING))
+    map_batch = stack_graphs(maps, dev)
+    qb = stack_graphs(queries, dev)
+    rows_of = lambda s: SemanticGraph(*(x[s] for x in qb))
+    chunks = [rows_of(slice(i, i + SCALE_CHUNK)) for i in range(0, SCALE_QUERIES, SCALE_CHUNK)]
+    gts = [g.pose for g in queries]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    map_descs = build_descriptors_chunked(map_batch, cfg, chunk=SCALE_BUILD_CHUNK)
+    torch.cuda.synchronize()
+    desc_s = time.perf_counter() - t0
+    sample = build_descriptors(rows_of(slice(0, SCALE_SAMPLE)), cfg.desc, cfg.caps)
+    db, report, totals = build_database_calibrated(map_descs, map_batch.pose, sample, cfg.desc)
+    cfg = fit_scan_slots(int(totals.max()), tuned_config(cfg, report))
+    torch.cuda.synchronize()
+    db_s = time.perf_counter() - t0
+    del map_descs
+    use_sel = cfg.caps.max_scan_slots <= cfg.caps.sel_max_scan_slots
+    log(f"large map DB: rows={report.num_rows} cells={report.num_cells} "
+        f"max_bucket={report.max_bucket} max_cell_bucket={report.max_cell_bucket} "
+        f"f_pad={db.num_frames} direct_table={db.has_direct_table} "
+        f"scan_slots={cfg.caps.max_scan_slots} (max sampled total {int(totals.max())}) "
+        f"bucket_cap={cfg.caps.bucket_cap} pair lists={'sel' if use_sel else 'candidate-major'}; "
+        f"descriptors {desc_s:.4f} s, db_build_s={db_s:.4f} (descriptors included) [{card}]")
+
+    def outcome(results, name):
+        found = torch.cat([r.found for r in results]).cpu().numpy()
+        poses = torch.cat([r.poses[:, 0] for r in results]).cpu().numpy()
+        trunc = torch.cat([r.truncated for r in results]).cpu().numpy()
+        n_trunc = int(((trunc & TRUNC_SCAN) != 0).sum())
+        sr = success_rate(gts, poses, found, cfg)
+        if n_trunc:
+            fail(f"large map {name}: {n_trunc} queries overflowed the calibrated scan cap")
+        if sr < SR_GATE:
+            fail(f"large map {name}: success rate {sr:.4f} below {SR_GATE}")
+        return sr
+
+    def same(a, b, fields, what):
+        for f in fields:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                fail(f"large map {what}: {f} differs")
+
+    # (1) The default config.
+    reset_counts()
+    torch.cuda.synchronize()
+    res1 = [localize(db, q, cfg) for q in chunks]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"large map (1) kernel launches (B1-B6): {counts}")
+    if counts[0] != 0 or counts[5] <= 0 or min(counts[1:3]) <= 0:
+        fail(f"large map (1): B2, B3 and B6 must launch and B1 must not: {counts}")
+    sr1 = outcome(res1, "(1)")
+    cand_f, cand_v = canonical_candidates(*host_candidates(res1))
+    digest = candidates_sha256(cand_f, cand_v)
+    log(f"large map (1): SR={sr1:.4f} TRUNC_SCAN=0; candidates sha256 {digest}")
+    if num_map == 5000 and (report.num_rows, digest) != tuple(REFERENCE_5K.values()):
+        fail(f"large map: rows {report.num_rows} / sha256 {digest} differ from the JAX "
+             f"reference's {REFERENCE_5K}")
+
+    # (2) Candidate-major pair lists: the same candidates and votes.
+    cm = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=0))
+    res2 = [localize(db, q, cm) for q in chunks]
+    sr2 = outcome(res2, "(2)")
+    for got, want in zip(canonical_candidates(*host_candidates(res2)), (cand_f, cand_v)):
+        if not np.array_equal(got, want):
+            fail("large map (2): candidate-major run's candidates or votes differ from (1)'s")
+    log(f"large map (2) candidate-major: candidates and votes equal to (1)'s; SR={sr2:.4f}")
+
+    # (3) Bisection: the same DB without its bucket table.
+    no_table = db._replace(bucket_table=db.bucket_table[:0], cell_remap=db.cell_remap[:0],
+                           code_remap=db.code_remap[:0])
+    same(localize(no_table, chunks[0], cfg), res1[0], ("frames", "votes"), "(3) bisection")
+    log("large map (3) bisection, chunk 0: frames and votes equal to (1)'s")
+
+    # (4) A cap far below the scan, then localize_exact.
+    capped = cfg.replace(caps=dataclasses.replace(cfg.caps, max_scan_slots=8192))
+    trunc = localize(db, chunks[1], capped).truncated
+    if not bool(((trunc & TRUNC_SCAN) != 0).all()):
+        fail(f"large map (4): the 8,192-slot cap left TRUNC_SCAN unset: {trunc.tolist()}")
+    exact = localize_exact(db, chunks[1], capped)
+    same(exact, res2[1], ("frames", "votes"), "(4) localize_exact")
+    if bool(exact.truncated.any()):
+        fail("large map (4): localize_exact flagged truncation")
+    log("large map (4) localize_exact, chunk 1 under an 8,192-slot cap: frames and votes "
+        "equal to the uncapped run")
+
+    # (5) The frame axis padded past 65,536: live candidates equal.
+    reset_counts()
+    wide = localize(pad_frames(db, WIDE_F_PAD), chunks[2], cfg)
+    if read_counts()[5] <= 0:
+        fail("large map (5): B6 was not launched")
+    ref = res1[2]
+    live = ref.votes >= cfg.search.min_votes
+    if not torch.equal(live, wide.votes >= cfg.search.min_votes):
+        fail("large map (5): live candidates differ")
+    for f in ("frames", "votes", "scores"):
+        if not torch.equal(getattr(wide, f)[live], getattr(ref, f)[live]):
+            fail(f"large map (5): live candidates' {f} differ")
+    log(f"large map (5) f_pad {WIDE_F_PAD}, chunk 2: live candidates' frames, votes and scores "
+        "equal to (1)'s")
+
+    # (6) B6 as its plain version.
+    with mock.patch.object(probe, "frame_votes_wide", probe.frame_votes_wide_plain):
+        plain = localize(db, chunks[3], cfg)
+    same(plain, res1[3], ("frames", "votes", "found", "best_frame"), "(6) plain B6")
+    log("large map (6) plain-version B6, chunk 3: frames, votes, found, best_frame equal")
+
+    splits = [scale_stages(db, chunks[0], cfg) for _ in range(3)]
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    log("large map chunk stage split, ms (median of 3, synchronized per stage): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
+    times = []
+    for _ in range(REPS):
+        times.append(sum(timed_ms(lambda q=q: localize(db, q, cfg)) for q in chunks) / 1e3)
+    scans_s = [SCALE_QUERIES / s for s in times]
+    log(f"large map steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
+        f"chunk {SCALE_CHUNK}, synchronized per chunk; {num_map} keyframes, {report.num_rows} rows, "
+        f"{cfg.caps.max_scan_slots} slots) [{card}]")
+    log(f"large map peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts[5]
+
+
+def ptxas_usage(text: str) -> list:
+    """'entry: Used N registers, ...' for each kernel in nvcc's -Xptxas -v
+    output (mangled entry names)."""
+    out, entry = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif "Used" in ln and entry:
+            out.append(f"{entry}: {ln.split('Used', 1)[1].strip()}")
+            entry = None
+    return out
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scale-frames", type=int, default=5000,
+                        help="keyframes of phase 5's large map (default 5000)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a card")
     from sgtd_tpu_torch.ops import _build
@@ -559,13 +837,14 @@ def main() -> None:
     path = _build.build()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
-    log("ptxas: " + " | ".join(
-        ln.strip() for ln in path.with_suffix(".log").read_text().splitlines() if "Used" in ln
-    ))
+    log("ptxas: " + " | ".join(ptxas_usage(path.with_suffix(".log").read_text())))
 
     records = check_kernels(dev, card)
     ctx = main_path(dev, card)
     launches = refined_path(dev, card, *ctx)
+    del ctx
+    torch.cuda.empty_cache()
+    launches.append(large_map(dev, card, args.scale_frames))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"sgtd_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}

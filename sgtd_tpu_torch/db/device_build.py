@@ -9,6 +9,7 @@ to the end.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -20,9 +21,9 @@ from sgtd_tpu_torch.db.database import (
     MAX_TABLE_ROWS,
     PAD_KEY,
 )
-from sgtd_tpu_torch.desc.keys import _N_CODES, probe_cells, validate_key_space
+from sgtd_tpu_torch.desc.keys import _N_CODES, validate_key_space
 from sgtd_tpu_torch.desc.triangles import Descriptors
-from sgtd_tpu_torch.match.search import _bucket_lookup
+from sgtd_tpu_torch.match.search import scan_totals
 
 
 def _as_int32_bits(w: torch.Tensor) -> torch.Tensor:
@@ -35,45 +36,67 @@ def _first_of_run(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.cat([head, x[1:] != x[:-1]]) & valid
 
 
-def _assemble(
-    descs: Descriptors,
-    poses: torch.Tensor,
-    cfg: DescriptorConfig,
-    table_slots: int,
-):
-    extent = validate_key_space(cfg)
-    f_n, d_n = descs.mask.shape
-    m = f_n * d_n
-    dev = descs.sides.device
+def _keys_and_words(sides, labels, frames, valid, extent):
+    """Sort keys, label codes and packed2 words of descriptor rows (M, ...)."""
     i32 = torch.int32
-
-    sides = descs.sides.reshape(m, 3)
-    labels = descs.labels.reshape(m, 3)
-    verts = descs.vertices.reshape(m, 3, 3)
-    frames = torch.arange(f_n, dtype=i32, device=dev).repeat_interleave(d_n)
-    valid = descs.mask.reshape(m)
-
     q = torch.floor(sides + 0.5).to(i32).clamp(0, extent - 1)
     l = labels.clamp(0, 12)
     code = (l[:, 0] * 13 + l[:, 1]) * 13 + l[:, 2]
     key = ((q[:, 0] * extent + q[:, 1]) * extent + q[:, 2]) * _N_CODES + code
     key = torch.where(valid, key, PAD_KEY).to(i32)
-
-    key_s, order = torch.sort(key, stable=True)
-    sides_s = sides[order]
-    verts_s = verts[order]
-    frames_s = frames[order]
-    valid_s = valid[order]
-
-    codes = torch.where(valid_s, key_s % _N_CODES, -1).to(i32)
-    qs = torch.round(sides_s * 256.0).clamp(0, 65535).to(torch.int64)
+    qs = torch.round(sides * 256.0).clamp(0, 65535).to(torch.int64)
     packed2 = torch.stack(
         [
             _as_int32_bits(qs[:, 0] | (qs[:, 1] << 16)),
-            _as_int32_bits(qs[:, 2] | ((frames_s.to(torch.int64) & 0xFFFF) << 16)),
+            _as_int32_bits(qs[:, 2] | ((frames.to(torch.int64) & 0xFFFF) << 16)),
         ],
         dim=-1,
     )
+    return key, torch.where(valid, code, -1).to(i32), packed2
+
+
+def _frame_index(frames_s, valid_s, f_pad):
+    """Frame-major row index: (frame_rows, frame_start)."""
+    dev = frames_s.device
+    frame_sort_key = torch.where(valid_s, frames_s, f_pad).to(torch.int32)
+    frame_rows = torch.argsort(frame_sort_key, stable=True).to(torch.int32)
+    frame_start = torch.searchsorted(
+        frame_sort_key[frame_rows.long()],
+        torch.arange(f_pad + 1, dtype=torch.int32, device=dev),
+        out_int32=True,
+    )
+    return frame_rows, frame_start
+
+
+def _flat_rows(descs: Descriptors, extent: int, frame0: int = 0):
+    """Rows of stacked (F, D, ...) descriptors, flattened to (F * D, ...):
+    (keys, codes, packed2 words, vertices, frame ids from ``frame0``,
+    valid)."""
+    f_n, d_n = descs.mask.shape
+    m = f_n * d_n
+    dev = descs.sides.device
+    frames = torch.arange(f_n, dtype=torch.int32, device=dev).repeat_interleave(d_n) + frame0
+    valid = descs.mask.reshape(m)
+    key, code, words = _keys_and_words(
+        descs.sides.reshape(m, 3), descs.labels.reshape(m, 3), frames, valid, extent
+    )
+    return key, code, words, descs.vertices.reshape(m, 3, 3), frames, valid
+
+
+def _assemble(rows, poses: torch.Tensor, extent: int, table_slots: int):
+    """The DB of flat rows (``_flat_rows``'s tuple) owned by frames with
+    (F, 4, 4) ``poses``, and its bucket stats."""
+    key, code, words, verts, frames, valid = rows
+    f_n, m = poses.shape[0], key.shape[0]
+    dev = key.device
+    i32 = torch.int32
+
+    key_s, order = torch.sort(key, stable=True)
+    codes = code[order]
+    packed2 = words[order]
+    verts_s = verts[order]
+    frames_s = frames[order]
+    valid_s = valid[order]
 
     n_cells_total = extent * extent * extent
     cells = torch.where(valid_s, key_s // _N_CODES, n_cells_total).to(i32)
@@ -83,13 +106,7 @@ def _assemble(
     )
 
     f_pad = max(-(-f_n // 8) * 8, 8)
-    frame_sort_key = torch.where(valid_s, frames_s, f_pad).to(i32)
-    frame_rows = torch.argsort(frame_sort_key, stable=True).to(i32)
-    frame_start = torch.searchsorted(
-        frame_sort_key[frame_rows.long()],
-        torch.arange(f_pad + 1, dtype=i32, device=dev),
-        out_int32=True,
-    )
+    frame_rows, frame_start = _frame_index(frames_s, valid_s, f_pad)
 
     # Bucket stats: run lengths over the sorted keys and cells.
     valid_i = valid_s.to(i32)
@@ -187,7 +204,8 @@ def build_database_on_device(
     table_slots: int = 1 << 23,
 ) -> Tuple[DescriptorDB, DBBuildReport]:
     """Assemble the DB from stacked (F, D, ...) descriptors; poses (F, 4, 4)."""
-    db, stats = _assemble(descs, poses, cfg, table_slots)
+    extent = validate_key_space(cfg)
+    db, stats = _assemble(_flat_rows(descs, extent), poses, extent, table_slots)
     return _finish(
         db, stats, descs.mask.shape[0], bucket_cap_for_report, table_slots
     )
@@ -204,11 +222,35 @@ def build_database_calibrated(
     """build_database_on_device plus the probe-scan total of each sample
     query, (S,) int32 (feed ``totals.max()`` to
     ``match.search.fit_scan_slots``)."""
-    db, stats = _assemble(descs, poses, cfg, table_slots)
-    cells, code, gate = probe_cells(sample_descs.sides, sample_descs.labels, cfg)
-    st, en, ok = _bucket_lookup(db, cells, code, gate & sample_descs.mask[..., None])
-    totals = torch.where(ok, en - st, 0).sum(dim=(-2, -1), dtype=torch.int32)
+    extent = validate_key_space(cfg)
+    db, stats = _assemble(_flat_rows(descs, extent), poses, extent, table_slots)
+    totals = scan_totals(db, sample_descs, cfg)
     db, report = _finish(
         db, stats, descs.mask.shape[0], bucket_cap_for_report, table_slots
     )
     return db, report, totals
+
+
+def append_database(
+    db: DescriptorDB,
+    new_descs: Descriptors,
+    new_poses: torch.Tensor,
+    cfg: DescriptorConfig = DescriptorConfig(),
+) -> Tuple[DescriptorDB, DBBuildReport]:
+    """Append keyframes to a DB: stacked (F_new, D, ...) descriptors and
+    their (F_new, 4, 4) poses, frame ids continuing after the DB's valid
+    frames. The DB's rows and the new ones are assembled again in one
+    stable sort, under the DB's table size; the report caps no bucket."""
+    extent = validate_key_space(cfg)
+    f_old = int(db.frame_valid.sum())
+    old = (db.keys, db.codes, db.packed2, db.vertices, db.frame_ids, db.keys != PAD_KEY)
+    new = _flat_rows(new_descs, extent, frame0=f_old)
+    rows = tuple(torch.cat([a, b]) for a, b in zip(old, new))
+    poses = torch.cat([db.frame_poses[:f_old], new_poses.to(db.frame_poses)])
+    table_slots = int(db.bucket_table.shape[0]) or (1 << 23)
+    new_db, stats = _assemble(rows, poses, extent, table_slots)
+    new_db, report = _finish(new_db, stats, poses.shape[0], 0, table_slots)
+    if not new_db.has_direct_table:
+        # The reference's host-built table stores a stride of 0 without a table.
+        new_db = new_db._replace(table_stride=torch.zeros_like(new_db.table_stride))
+    return new_db, dataclasses.replace(report, rows_beyond_cap=0)

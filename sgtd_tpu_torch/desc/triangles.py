@@ -109,8 +109,12 @@ def build_descriptors(
         )
 
     # --- kNN over the padded node set (self at slot 0). ---
+    # Summed as ((x + y) + z), the reference's order. torch's CUDA
+    # reduction over a 3-wide axis adds in another order, and near-ties
+    # then reorder the neighbours (2 frames of the 5,000-keyframe world).
     diff = pts[:, :, None, :] - pts[:, None, :, :]
-    dist2 = (diff * diff).sum(-1)
+    sq = diff * diff
+    dist2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
     valid_pair = mask[:, :, None] & mask[:, None, :]
     dist2 = torch.where(valid_pair, dist2, _BIG)
     eye = torch.eye(n_nodes, dtype=torch.bool, device=dev)

@@ -3,7 +3,7 @@
 Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 ``np.asarray`` takes) to the port's tensors on an explicit device and
 back, carries keyframe clouds, masks and GICP covariances onto a device
-(padded to the DB's frame count), and reads the reference's on-disk
+(padded to the DB's frame count), pads a DB's frame axis, and reads the reference's on-disk
 descriptor-DB format (v2), so a map built by ``sgtd_tpu`` is served by
 the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
 cross as their int32 bit patterns.
@@ -63,6 +63,25 @@ def db_to_numpy(db: DescriptorDB) -> dict:
         a = getattr(db, f).cpu().numpy()
         out[f] = a.view(np.uint32) if f in _UINT32_FIELDS else a
     return out
+
+
+def pad_frames(db: DescriptorDB, f_pad: int) -> DescriptorDB:
+    """``db`` with its frame axis padded to ``f_pad`` keyframes: the extra
+    frames are invalid and own no rows, so every search over it gives the
+    same live candidates. Past 65,536 frames (or 2,048) this puts a map on
+    the wide-DB paths of the search (frame-id gathers, the argsort pair
+    grouping, kernel B6) with the same rows."""
+    f_old = db.frame_poses.shape[0]
+    if f_pad < f_old:
+        raise ValueError(f"f_pad {f_pad} is below the DB's {f_old} frames")
+    dev = db.frame_poses.device
+    fp = torch.eye(4, dtype=torch.float32, device=dev).repeat(f_pad, 1, 1)
+    fp[:f_old] = db.frame_poses
+    fv = torch.zeros(f_pad, dtype=torch.bool, device=dev)
+    fv[:f_old] = db.frame_valid
+    fs = db.frame_start[-1].repeat(f_pad + 1)
+    fs[: f_old + 1] = db.frame_start
+    return db._replace(frame_poses=fp, frame_valid=fv, frame_start=fs)
 
 
 def map_clouds_to_device(clouds, masks, covs=None, device="cpu", f_pad: int | None = None):

@@ -6,11 +6,13 @@ score-sorted candidate list with rigid transforms (``localize``); then
 GICP-align the query cloud against the top candidates' keyframe clouds
 and pick one (``localize_refined``, the full headline configuration) —
 here for a batch of query graphs at once (leading axis B) in place of
-the reference's vmap.
+the reference's vmap. ``localize_exact`` is the uncapped fallback for
+queries that ``localize`` flags TRUNC_SCAN.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -20,7 +22,15 @@ from sgtd_tpu_torch.db.database import DescriptorDB
 from sgtd_tpu_torch.desc.triangles import Descriptors, build_descriptors
 from sgtd_tpu_torch.geom import se3
 from sgtd_tpu_torch.graph.types import SemanticGraph
-from sgtd_tpu_torch.match.search import CandidateSet, candidate_search
+from sgtd_tpu_torch.match.search import (
+    CandidateSet,
+    build_probe_table,
+    candidate_search,
+    extract_pairs_by_frame,
+    probe_and_hits,
+    scan_totals,
+    select_candidates,
+)
 from sgtd_tpu_torch.match.verify import VerifyResult, verify_candidates
 from sgtd_tpu_torch.refine.gicp import gicp_rerank
 from sgtd_tpu_torch.utils import disable_tf32
@@ -76,6 +86,49 @@ def localize_descriptors(
     cand = candidate_search(db, query, config.desc, config.search, config.caps)
     ver = verify_candidates(db, query, cand, config.search)
     return rank_candidates(db, query, cand, ver, config)
+
+
+def localize_exact(
+    db: DescriptorDB,
+    graphs: SemanticGraph,
+    config: SGTDConfig = SGTDConfig(),
+) -> LocalizationResult:
+    """Uncapped fallback for queries flagged TRUNC_SCAN by :func:`localize`.
+
+    Measures the batch's true ragged-scan totals, re-runs the search with
+    caps.max_scan_slots raised to the power of two (from 8192) that covers
+    the largest, and builds the pair lists candidate-major
+    (``extract_pairs_by_frame``, bounded only by pairs_per_candidate)
+    instead of through the per-descriptor hits_per_descriptor cap. The
+    scan of each query is exact whenever its total fits the cap, so one
+    cap for the batch gives every query the reference's result; no vote
+    or pair is lost, and ``truncated`` is 0.
+    """
+    disable_tf32()
+    query = build_descriptors(graphs, config.desc, config.caps)
+    total = int(scan_totals(db, query, config.desc).max())
+    slots = 8192
+    while slots < total:
+        slots *= 2
+    cfg = config.replace(caps=dataclasses.replace(config.caps, max_scan_slots=slots))
+
+    ph = probe_and_hits(db, query, cfg.desc, cfg.search, cfg.caps, with_sel=False)
+    cand_votes, cand_frames, cand_valid = select_candidates(ph.votes, cfg.search)
+    pkeys, pdesc = build_probe_table(query, cfg.desc)
+    pair_qidx, pair_row, pair_valid = extract_pairs_by_frame(
+        db, query, pkeys, pdesc, cand_frames, cand_valid, cfg.search, cfg.caps
+    )
+    cand = CandidateSet(
+        frames=cand_frames,
+        votes=cand_votes,
+        valid=cand_valid,
+        pair_qidx=pair_qidx,
+        pair_row=pair_row,
+        pair_valid=pair_valid,
+        truncated=torch.zeros_like(ph.scan_overflow, dtype=torch.int32),
+    )
+    ver = verify_candidates(db, query, cand, cfg.search)
+    return rank_candidates(db, query, cand, ver, cfg)
 
 
 def rank_candidates(

@@ -37,6 +37,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     # hit, frame, out_counts, B, L, f_pad, stream
     "sgtd_frame_votes": (_P, _P, _P, _I, _I, _I, _P),
+    "sgtd_frame_votes_wide": (_P, _P, _P, _I, _I, _I, _P),
     # offsets, payload, out, B, NJ, C, l_max, stream
     "sgtd_expand_jobs": (_P, _P, _P, _I, _I, _I, _I, _P),
     # rot, t, vq, vdb, pair_valid, out, N, H, P, thr2, stream

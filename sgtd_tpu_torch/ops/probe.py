@@ -1,5 +1,6 @@
-"""B1 ``frame_votes``: the per-frame vote tally (port of
-sgtd_tpu.ops.pallas_probe.frame_votes; kernel in ``csrc/probe.cu``).
+"""B1 ``frame_votes`` and B6 ``frame_votes_wide``: the per-frame vote tally
+(port of sgtd_tpu.ops.pallas_probe.frame_votes / frame_votes_wide; kernels
+in ``csrc/probe.cu``).
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
 plain PyTorch version. There is no fallback between the two.
@@ -11,9 +12,11 @@ import torch
 
 from sgtd_tpu_torch.ops import _build
 
-# Kernel launches since the last reset (the main-path check reads it).
+# Kernel launches since the last reset (the main-path check reads them).
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
+# Widest frame axis of B1; B6 takes any.
 MAX_F_PAD = 2048
 
 
@@ -25,32 +28,52 @@ def frame_votes_plain(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> tor
     return out.scatter_add_(-1, idx, keep.to(torch.float32))
 
 
+def frame_votes_wide_plain(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
+    """Plain version of B6: the same scatter-add, for any f_pad."""
+    return frame_votes_plain(hit, frame, f_pad)
+
+
 def frame_votes(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
     """Sum of ``hit`` per ``frame`` id: (B, L) bool, (B, L) int32 -> (B, f_pad)
-    float32 holding exact integer counts. Ids outside [0, f_pad) are dropped."""
+    float32 holding exact integer counts, f_pad <= 2048. Ids outside
+    [0, f_pad) are dropped."""
+    global LAUNCHES
     if hit.device.type == "cpu":
         return frame_votes_plain(hit, frame, f_pad)
-    return _frame_votes_cuda(hit, frame, f_pad)
-
-
-def _frame_votes_cuda(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
-    global LAUNCHES
-    if hit.device.type != "cuda" or frame.device != hit.device:
-        raise ValueError(f"frame_votes: CUDA tensors required, got {hit.device}/{frame.device}")
-    if hit.dtype != torch.bool or frame.dtype != torch.int32:
-        raise TypeError(f"frame_votes: bool hit and int32 frame, got {hit.dtype}/{frame.dtype}")
-    if hit.dim() != 2 or frame.shape != hit.shape:
-        raise ValueError(f"frame_votes: (B, L) inputs, got {tuple(hit.shape)}/{tuple(frame.shape)}")
     if not 0 < f_pad <= MAX_F_PAD:
         raise ValueError(f"frame_votes: f_pad {f_pad} outside (0, {MAX_F_PAD}]")
+    counts = _launch("sgtd_frame_votes", hit, frame, f_pad)
+    LAUNCHES += 1
+    return counts
+
+
+def frame_votes_wide(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
+    """:func:`frame_votes` for any f_pad >= 1 (the tally of DBs above 2048
+    keyframes). Counts are int32 on the card and exact in float32 while
+    each stays below 2^24, which holds for every L < 2^24 slots."""
+    global WIDE_LAUNCHES
+    if hit.device.type == "cpu":
+        return frame_votes_wide_plain(hit, frame, f_pad)
+    if f_pad <= 0:
+        raise ValueError(f"frame_votes_wide: f_pad {f_pad} must be positive")
+    counts = _launch("sgtd_frame_votes_wide", hit, frame, f_pad)
+    WIDE_LAUNCHES += 1
+    return counts
+
+
+def _launch(entry: str, hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
+    if hit.device.type != "cuda" or frame.device != hit.device:
+        raise ValueError(f"{entry}: CUDA tensors required, got {hit.device}/{frame.device}")
+    if hit.dtype != torch.bool or frame.dtype != torch.int32:
+        raise TypeError(f"{entry}: bool hit and int32 frame, got {hit.dtype}/{frame.dtype}")
+    if hit.dim() != 2 or frame.shape != hit.shape:
+        raise ValueError(f"{entry}: (B, L) inputs, got {tuple(hit.shape)}/{tuple(frame.shape)}")
     hit, frame = hit.contiguous(), frame.contiguous()
     b, l = hit.shape
     counts = torch.zeros((b, f_pad), dtype=torch.int32, device=hit.device)
-    lib = _build.library()
-    rc = lib.sgtd_frame_votes(
+    rc = getattr(_build.library(), entry)(
         hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad,
         torch.cuda.current_stream(hit.device).cuda_stream,
     )
-    _build.check(rc, "sgtd_frame_votes")
-    LAUNCHES += 1
+    _build.check(rc, entry)
     return counts.to(torch.float32)

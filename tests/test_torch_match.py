@@ -115,12 +115,23 @@ def test_verify_pairs_matches_reference(world):
 
 
 @pytest.mark.parametrize("path", ["bisection", "candidate_major"])
-def test_unported_paths_raise(world, path):
-    """Paths off the bench path raise instead of quietly taking another."""
-    cfg, _, _, tdb, tq = world
+def test_fallback_paths_match_reference(world, path):
+    """The search paths of large maps equal the reference's on this world:
+    the in-cell bisection of a DB without a bucket table, and
+    candidate-major pair extraction above sel_max_scan_slots."""
+    cfg, db, qd, tdb, tq = world
     if path == "bisection":  # DB beyond the bucket-table budget
-        tdb = tdb._replace(bucket_table=tdb.bucket_table[:0])
+        tdb = tdb._replace(bucket_table=tdb.bucket_table[:0], cell_remap=tdb.cell_remap[:0],
+                           code_remap=tdb.code_remap[:0])
+        db = db._replace(bucket_table=db.bucket_table[:0], cell_remap=db.cell_remap[:0],
+                         code_remap=db.code_remap[:0])
     else:  # scan budget above sel_max_scan_slots
         cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=cfg.caps.max_scan_slots - 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        candidate_search(tdb, tq, cfg.desc, cfg.search, cfg.caps)
+    got = candidate_search(tdb, tq, cfg.desc, cfg.search, cfg.caps)
+    for i, q in enumerate(qd):
+        want = jax_candidate_search(db, q, cfg.desc, cfg.search, cfg.caps)
+        for f in want._fields:
+            np.testing.assert_array_equal(
+                getattr(got, f)[i].numpy(), np.asarray(getattr(want, f)), err_msg=f"query {i} {f}"
+            )
+    assert got.valid[:, 0].all() and got.pair_valid[:, 0].any(-1).all()
