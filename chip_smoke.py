@@ -14,14 +14,28 @@ Phases (any failure ends the run with a non-zero exit):
    except on rows whose kernel and plain picks lie within 1 ulp of each
    other (at most 0.1% of rows); B6 equal at the 5,000-keyframe scan
    (8 x 1,802,240 slots) for f_pad 5,000 and 20,000, and at f_pad 65,544
-   (its global-memory branch). B1-B3, B6: median times of kernel and
-   plain version over 20 synchronized runs each; B4-B5: CUDA-event times.
+   (its global-memory branch). B7 at the rerank's shapes (64 problems,
+   1,024 source x 4,096 target points, a tenth of each side masked), with
+   no gate and with a 1.0 m gate, and at 160 problems: the per-point b and
+   w equal (the same 1-ulp rule), M within 1e-5 of its point's largest
+   entry, H and g within rtol 2e-4 + atol 2e-2, y0 and the sum of squared
+   distances within rtol 1e-4 (nvcc contracts the algebra into FMAs, the
+   plain version does not), and two launches on the same inputs give the
+   same bits. B8 equal at (399,104, 2) x 106,496 rows and at
+   (9,775,363, 2) x 14,417,920. B1-B3, B6: median times of kernel and
+   plain version over 20 synchronized runs each; B4, B5, B7, B8:
+   CUDA-event times. Each kernel's time stands beside its bound on the
+   card (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+   whichever is larger) and, where one PyTorch call computes the same
+   function, that call's time.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
    zero TRUNC_SCAN, success rate >= 0.95, B1-B3 launched. One chunk
    re-runs with the plain versions and must give the same candidates and
-   votes. Prints DB build seconds and steady-state scans/s.
+   votes. B8, which no module calls, gathers the packed2 words of that
+   chunk's kept hits; their frames must equal the probe stage's. Prints
+   DB build seconds and steady-state scans/s.
 4. The refined main path (``bench.py``'s): keyframe clouds of 4,096
    points and their covariances (B5) on the card, query sources
    voxel-downsampled to at most 1,024 points, then ``localize_refined``
@@ -52,7 +66,32 @@ Phases (any failure ends the run with a non-zero exit):
    and votes (float32) in (votes desc, frame asc) order; at 5,000
    keyframes the rows and the digest must equal the JAX reference's.
 
-The line before the last holds the kernels' JSON record; the last line is
+6. The fused refined path: phase 4's inputs through ``localize_refined``
+   with ``refine.gicp._USE_FUSED_LINEARIZE`` patched on, so every LM trip
+   is one launch of B7. Gates: zero TRUNC_SCAN, refined success rate >=
+   0.95, pick, found and refined equal to the unfused path's on all 64
+   queries, poses within 2e-2 m (FUSED_POS_TOL_M) and 1e-3 rad of it, B7 launched at least
+   once and at most ``max_iterations`` times a chunk and B4 exactly once
+   a chunk; one chunk re-runs with B7 patched to its plain version and
+   must give the same pick and poses within the same tolerance. Prints
+   the chunk's stage split and steady-state scans/s, fused and unfused
+   measured in turns.
+7. ``evaluate`` on the hard world (``tools/hard_eval.py``'s: rng 411, 200
+   map keyframes, 64 queries, 2 motifs, 2 unique instances per block,
+   query centre noise 0.45 m, dropout 0.35, label corruption 0.15; planar
+   clouds of 4,096 points, leaf 0.5 m, a 1.0 m correspondence gate,
+   sources of at most 1,024 points, rerank of the top 10, batches of 16)
+   through ``build_map_index`` and ``evaluate``: descriptor-only, refined
+   unfused and refined fused. Gates: DB rows, descriptor-only success
+   rate and the SHA-256 of (found, best frame) equal to the JAX
+   reference's on the CPU; descriptor-only success rate in [0.80, 1.0);
+   both refined runs at least 0.02 above it; fused and unfused pick the
+   same frame on every query; one query under a scan cap far below its
+   scan goes through ``localize_exact`` and ``_rerank_single`` and must
+   land within the success gate. Prints the three summary tables.
+
+After the last phase no ``jax`` or ``sgtd_tpu`` module may be loaded. The
+line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,6 +118,12 @@ SR_GATE = 0.95
 T_START = time.perf_counter()
 CLOUD_PTS, SRC_PTS, RERANK_K = 4096, 1024, 4  # bench.py:170-195
 POS_TOL_M, ROT_TOL_RAD = 5e-3, 1e-3
+# Fused against unfused LM on the card: every float of a trip differs by
+# ulps (FMA contraction in B7, another order of sums), and one flipped LM
+# decision (rho >= 0, convergence) moves an end pose by a few step
+# lengths in the bench world's shallow GICP basins (its refined poses sit
+# 0.8 m from the truth): 7.8e-3 m was measured, against an SR gate of 5 m.
+FUSED_POS_TOL_M = 2e-2
 # The large map (tools/scale_bench.py:40-112).
 SCALE_SEED, SCALE_QUERIES, SCALE_CHUNK, SCALE_SAMPLE = 2027, 32, 8, 16
 SCALE_SLOT_CEILING, SCALE_BUILD_CHUNK, WIDE_F_PAD = 1 << 23, 256, 65544
@@ -90,10 +135,27 @@ REFERENCE_5K = {
     "rows": 9775363,
     "sha256": "d590f066fbcb4955314fb095f2f448774c92906c17e31ca3663d8ef174fe61a9",
 }
-# (module, counter) of every kernel, in B1-B6 order.
+# The hard world (tools/hard_eval.py with the settings of its recorded
+# run) and the JAX reference's descriptor-only leg on it (sgtd_tpu on the
+# CPU): DB rows, success rate, and the SHA-256 of the queries' found
+# (uint8) and best_frame (int32). tests/test_torch_eval.py's slow
+# test_reference_hard_world computes all three again from sgtd_tpu.
+HARD_SEED, HARD_MOTIFS, HARD_UNIQUE = 411, 2, 2
+HARD_OBS = dict(center_noise_m=0.45, dropout=0.35, label_corrupt_rate=0.15)
+HARD_LEAF, HARD_GATE_M, HARD_RERANK_K = 0.5, 1.0, 10
+REFERENCE_HARD = {
+    "rows": 310944,
+    "success_rate": 0.890625,
+    "sha256": "fe3e0e71b649986ed91678972fdf5abf5dae47c8943f4be2221feb7dd163e5b8",
+}
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# bytes/s and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# (module, counter) of every kernel, in B1-B8 order.
 COUNTERS = (
     ("probe", "LAUNCHES"), ("expand", "LAUNCHES"), ("verify", "LAUNCHES"),
     ("nn", "NN1_LAUNCHES"), ("nn", "KNN_LAUNCHES"), ("probe", "WIDE_LAUNCHES"),
+    ("gicp", "LINEARIZE_LAUNCHES"), ("probe", "GATHER_LAUNCHES"),
 )
 
 
@@ -144,9 +206,30 @@ def event_ms(fn, launches: int, rounds: int = 5) -> float:
 
 
 def _modules():
-    from sgtd_tpu_torch.ops import expand, nn, probe, verify
+    from sgtd_tpu_torch.ops import expand, gicp, nn, probe, verify
 
-    return {"probe": probe, "expand": expand, "verify": verify, "nn": nn}
+    return {"probe": probe, "expand": expand, "verify": verify, "nn": nn, "gicp": gicp}
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None) -> dict:
+    """One entry of the kernels' JSON record. The bound is the least time
+    the card could take for the call: ``nbytes`` (each input read once,
+    each output written once) over the memory rate, or ``flops`` (float32
+    operations these inputs need) over the float32 peak, whichever is
+    larger. ``launches`` is filled in after the path runs."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": f"sgtd_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_flops), "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def log_bound(rec: dict) -> None:
+    lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+    log(f"   {rec['name']}: bound {rec['bound_ms']:.5f} ms by {rec['bound_by']} "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of the kernel's {rec['ms']:.4f} ms); one PyTorch call: {lib}")
 
 
 def reset_counts() -> None:
@@ -195,6 +278,15 @@ def check_nn_rows(name: str, q, r, got_idx, want_idx):
     return n_rows, err
 
 
+def scatter_add_ms(hit, frame, f_pad: int) -> float:
+    """CUDA-event time of the one PyTorch call that computes the vote
+    tally, ``scatter_add_`` of prepared float hits at prepared indices."""
+    keep = hit & (frame >= 0) & (frame < f_pad)
+    idx, val = torch.where(keep, frame, 0).long(), keep.to(torch.float32)
+    out = torch.zeros(hit.shape[:-1] + (f_pad,), dtype=torch.float32, device=hit.device)
+    return event_ms(lambda: out.scatter_add_(-1, idx, val), 10, 3)
+
+
 def check_kernels(dev, card: str):
     """Phase 2: each kernel against its plain version at the bench shapes."""
     from sgtd_tpu_torch.ops import expand, probe, verify
@@ -216,7 +308,10 @@ def check_kernels(dev, card: str):
         lambda: probe.frame_votes_plain(hit, frame, f_pad),
     )
     log(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
-    records.append(("frame_votes", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:67", err, ms, plain_ms))
+    records.append(kernel_record(
+        "frame_votes", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:67", err, ms, plain_ms,
+        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=scatter_add_ms(hit, frame, f_pad)))
+    log_bound(records[-1])
 
     # B2 expand_jobs: 16 x 55,296 jobs (2048 descriptors x 27 probes), 5
     # channels (one of any sign), 98,304 slots; skewed lengths, many empty.
@@ -240,7 +335,11 @@ def check_kernels(dev, card: str):
     )
     log(f"B2 expand_jobs ({b}, {nj} jobs, {c} ch) -> {l_max} slots: equal on valid slots; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
-    records.append(("expand_jobs", "expand.cu", "sgtd_tpu/ops/pallas_expand.py:73", err, ms, plain_ms))
+    # Bytes: lengths and payload read once, the valid slots written once.
+    records.append(kernel_record(
+        "expand_jobs", "expand.cu", "sgtd_tpu/ops/pallas_expand.py:73", err, ms, plain_ms,
+        nbytes=4 * (b * nj * (1 + c) + int(total.sum()) * c), flops=int(total.sum()) * c))
+    log_bound(records[-1])
 
     # B3 hypothesis_votes: 16 x 50 candidates, 50 hypotheses, 512 pairs;
     # a quarter of each candidate's pairs planted near hypothesis 0.
@@ -279,7 +378,13 @@ def check_kernels(dev, card: str):
     )
     log(f"B3 hypothesis_votes ({n} cand, {h} hyp, {p} pairs): max |err| {err} "
         f"({n_near} borderline pairs); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
-    records.append(("hypothesis_votes", "verify.cu", "sgtd_tpu/ops/pallas_verify.py:83", err, ms, plain_ms))
+    # Operations: per (hypothesis, valid pair) three vertices, each a
+    # rotation (15), a translation (3), a difference (3), d^2 (5), a test.
+    records.append(kernel_record(
+        "hypothesis_votes", "verify.cu", "sgtd_tpu/ops/pallas_verify.py:83", err, ms, plain_ms,
+        nbytes=sum(a.numel() * a.element_size() for a in args) + n * h * 4,
+        flops=int(args[4].sum()) * h * 3 * 27))
+    log_bound(records[-1])
 
     # B4 nn1: 16 queries x 4 candidates, 1,024 source x 4,096 target points
     # (the rerank's correspondences), a fifth of each displaced to 1e6 as
@@ -305,7 +410,11 @@ def check_kernels(dev, card: str):
     plain_ms = event_ms(lambda: nn.nn1_plain(src, tgt), 1, 3)
     log(f"B4 nn1 ({p}, {n_src}) x ({p}, {n_tgt}): {n_rows} rows differ (1-ulp rule), "
         f"max |err| {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) [{card}]")
-    records.append(("nn1", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:81", err, ms, plain_ms))
+    # Operations: 8 per distance (3 FMAs and the combine) and a compare.
+    records.append(kernel_record(
+        "nn1", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:81", err, ms, plain_ms,
+        nbytes=4 * (3 * p * (n_src + n_tgt) + 2 * p * n_src), flops=8 * p * n_src * n_tgt))
+    log_bound(records[-1])
 
     # B5 knn, k 20, self: the map covariances (200 keyframes x 4,096) and
     # the query covariances of one chunk (16 x 1,024), with masked points.
@@ -327,7 +436,10 @@ def check_kernels(dev, card: str):
         times.append((ms, plain_ms))
     # The record carries the per-chunk shape (16 x 1,024); the map build's
     # is logged above.
-    records.append(("knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", max(errs), *times[1]))
+    records.append(kernel_record(
+        "knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", max(errs), *times[1],
+        nbytes=4 * CHUNK * SRC_PTS * (3 + 3 + 20), flops=8 * CHUNK * SRC_PTS * SRC_PTS))
+    log_bound(records[-1])
 
     # B6 frame_votes_wide: the 5,000-keyframe scan (8 x 1,802,240 slots)
     # at f_pad 5,000 and 20,000, and the global-memory branch at 65,544.
@@ -354,9 +466,158 @@ def check_kernels(dev, card: str):
         log(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad}: equal; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms [{card}]")
         errs.append(err)
-        times.append((ms, plain_ms))
+        times.append((ms, plain_ms, scatter_add_ms(hit, frame, f_pad)))
     # The record carries the 5,000-keyframe shape, the one phase 5 runs.
-    records.append(("frame_votes_wide", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:145", max(errs), *times[0]))
+    b, l, f_pad = SCALE_CHUNK, 1802240, 5000
+    records.append(kernel_record(
+        "frame_votes_wide", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:145", max(errs), *times[0][:2],
+        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=times[0][2]))
+    log_bound(records[-1])
+    del hit, frame
+    records.extend(check_fused_kernels(dev, card, rng))
+    return records
+
+
+def gicp_problems(rng, p: int, n_src: int, n_tgt: int, dev):
+    """``p`` registration problems shaped like the rerank's: a mostly
+    planar target cloud with vertical structure, the source a noisy
+    subsample of it under a small offset, random SPD covariances, a tenth
+    of each side masked, and small random initial transforms. Returns the
+    arguments of ``ops.gicp.linearize_gicp`` without the gate."""
+    from sgtd_tpu_torch.geom import se3
+    from sgtd_tpu_torch.ops import gicp
+
+    tgt = np.stack([rng.uniform(-50, 50, (p, n_tgt)), rng.uniform(-50, 50, (p, n_tgt)),
+                    rng.normal(0, 0.05, (p, n_tgt))], axis=-1).astype(np.float32)
+    k = n_tgt // 4
+    tgt[:, :k, 2] = rng.uniform(0, 5, (p, k))
+    tgt[:, :k, 0] = np.round(tgt[:, :k, 0] / 5) * 5 + rng.normal(0, 0.03, (p, k))
+    pick = np.stack([rng.permutation(n_tgt)[:n_src] for _ in range(p)])
+    src = np.take_along_axis(tgt, pick[..., None], 1) + rng.normal(0, 0.05, (p, n_src, 3))
+    src = (src - rng.normal(0, 0.3, (p, 1, 3))).astype(np.float32)
+
+    def spd(n):
+        a = rng.normal(0, 1, (p, n, 3, 3)).astype(np.float32)
+        return a @ a.transpose(0, 1, 3, 2) + 0.1 * np.eye(3, dtype=np.float32)
+
+    to = lambda a: torch.from_numpy(a).to(dev)
+    src_mask, tgt_mask = to(rng.uniform(size=(p, n_src)) > 0.1), to(rng.uniform(size=(p, n_tgt)) > 0.1)
+    src, tgt, src_cov, tgt_cov = to(src), to(tgt), to(spd(n_src)), to(spd(n_tgt))
+    xi = to(np.concatenate([rng.normal(0, 0.2, (p, 3)), rng.normal(0, 0.02, (p, 3))], 1).astype(np.float32))
+    tgt_eff = torch.where(tgt_mask[..., None], tgt, torch.full_like(tgt, 1e6))
+    return (se3.se3_exp(xi), src, gicp.cov6(src_cov), src_mask, tgt_eff,
+            gicp.build_gicp_payload(tgt, tgt_mask, tgt_cov))
+
+
+def check_linearize(name: str, args, gate: float):
+    """B7 against its plain version on one set of inputs; returns the
+    largest absolute error over the sums and the per-point M."""
+    from sgtd_tpu_torch.ops import gicp, nn
+
+    sums, aux = gicp.linearize_sums(*args, gate)
+    again = gicp.linearize_sums(*args, gate)
+    torch.cuda.synchronize()
+    if not (torch.equal(sums, again[0]) and torch.equal(aux, again[1])):
+        fail(f"{name}: two launches on the same inputs differ in their bits")
+    want_sums, want_aux = gicp.linearize_sums_plain(*args, gate)
+    if not bool(torch.isfinite(sums).all() and torch.isfinite(aux).all()):
+        fail(f"{name}: non-finite output")
+    # b and w equal, except on rows where the two picks' distances lie
+    # within one ulp (the rule of B4).
+    rows = (aux[..., :3] != want_aux[..., :3]).any(-1) | (aux[..., 12] != want_aux[..., 12])
+    n_rows = int(rows.sum())
+    if n_rows > 1e-3 * rows.numel():
+        fail(f"{name}: b or w differ from the plain version on {n_rows} of {rows.numel()} points")
+    if n_rows:
+        moved = gicp._moved_fma(args[0], args[1])[rows][:, None]
+        d_got = nn.sq_dists_plain(moved, aux[rows][:, None, :3])
+        d_want = nn.sq_dists_plain(moved, want_aux[rows][:, None, :3])
+        if not bool(ulp_close(d_got, d_want).all()):
+            fail(f"{name}: {n_rows} points differ from the plain version beyond the 1-ulp tie rule")
+    same = ~rows
+    m_got, m_want = aux[..., 3:12][same], want_aux[..., 3:12][same]
+    m_err = ((m_got - m_want).abs().amax(-1) / m_want.abs().amax(-1)).max().item()
+    if m_err > 1e-5:
+        fail(f"{name}: M differs from the plain version by {m_err} of its largest entry")
+    clean = ~rows.any(-1)  # problems whose correspondences all agree
+    got, want = sums[clean].double(), want_sums[clean].double()
+    close = lambda a, b, rtol, atol: bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+    if not close(got[:, :42], want[:, :42], 2e-4, 2e-2):
+        fail(f"{name}: H or g differ from the plain version (max |err| "
+             f"{(got[:, :42] - want[:, :42]).abs().max().item()})")
+    y0, nv, sq = 42, gicp.N_VALID, gicp.SUM_SQD
+    if not close(got[:, y0], want[:, y0], 1e-4, 0) or not close(got[:, sq], want[:, sq], 1e-4, 0):
+        fail(f"{name}: y0 or the sum of squared distances differ from the plain version")
+    if not torch.equal(got[:, nv], want[:, nv]) or bool((got[:, sq + 1:] != 0).any()):
+        fail(f"{name}: n_valid differs from the plain version")
+    if not torch.equal(sums[:, :36].view(-1, 6, 6), sums[:, :36].view(-1, 6, 6).transpose(1, 2)):
+        fail(f"{name}: H is not symmetric")
+    err = max((got - want).abs().max().item(), (m_got - m_want).abs().max().item())
+    log(f"{name}: b and w equal ({n_rows} points under the 1-ulp rule), M within {m_err:.2e} of its "
+        f"largest entry, H/g/y0/sum sqd within tolerance (max |err| {err:.3e}, "
+        f"{int(want[:, nv].sum())} valid points), same bits twice")
+    return err
+
+
+def check_fused_kernels(dev, card: str, rng):
+    """Phase 2, continued: B7 and B8 against their plain versions."""
+    from sgtd_tpu_torch.ops import gicp, nn, probe
+
+    records = []
+    p, n_src, n_tgt = CHUNK * RERANK_K, SRC_PTS, CLOUD_PTS
+    args = gicp_problems(rng, p, n_src, n_tgt, dev)
+    shape = f"({p}, {n_src}) x ({p}, {n_tgt})"
+    err = max(check_linearize(f"B7 linearize_gicp {shape} no gate", args, float("inf")),
+              check_linearize(f"B7 linearize_gicp {shape} gate {HARD_GATE_M} m", args, HARD_GATE_M))
+    moved = gicp._moved_fma(args[0], args[1])
+    ms = event_ms(lambda: gicp.linearize_sums(*args, float("inf")), 50)
+    nn1_ms = event_ms(lambda: nn.nn1(moved, args[4]), 50)
+    plain_ms = event_ms(lambda: gicp.linearize_sums_plain(*args, float("inf")), 1, 3)
+    log(f"B7 linearize_gicp {shape}: kernel {ms:.4f} ms, B4 nn1 on the same points {nn1_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (CUDA events) [{card}]")
+    # Operations: 8 per distance plus about 300 per source point; bytes:
+    # every input once, the sums and aux once.
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * p * (gicp.ROW + n_src * gicp.AUX)
+    records.append(kernel_record(
+        "linearize_gicp", "gicp.cu", "sgtd_tpu/ops/pallas_gicp.py:231", err, ms, plain_ms,
+        nbytes=nbytes, flops=p * n_src * (8 * n_tgt + 300)))
+    log_bound(records[-1])
+    del args, moved
+    # The hard world's rerank of 10 candidates: 160 problems a chunk.
+    p = CHUNK * HARD_RERANK_K
+    args = gicp_problems(rng, p, n_src, n_tgt, dev)
+    check_linearize(f"B7 linearize_gicp ({p}, {n_src}) x ({p}, {n_tgt}) gate {HARD_GATE_M} m", args, HARD_GATE_M)
+    moved = gicp._moved_fma(args[0], args[1])
+    ms = event_ms(lambda: gicp.linearize_sums(*args, HARD_GATE_M), 20)
+    nn1_ms = event_ms(lambda: nn.nn1(moved, args[4]), 20)
+    log(f"B7 linearize_gicp at {p} problems: kernel {ms:.4f} ms, B4 nn1 {nn1_ms:.4f} ms (CUDA events) [{card}]")
+    del args, moved
+
+    # B8 gather_rows: the bench DB's packed2 (399,104 rows of 2 words) at
+    # one chunk's selected rows, and the 5,000-keyframe DB's at its scan.
+    rec = None
+    for m, l in ((399104, 106496), (9775363, SCALE_CHUNK * 1802240)):
+        table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (m, 2), dtype=np.int64).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, m, l, dtype=np.int32)).to(dev)
+        if int(idx.min()) < 0 or int(idx.max()) >= m:
+            fail("B8 gather_rows: test indices out of range")
+        got, want = probe.gather_rows(table, idx), probe.gather_rows_plain(table, idx)
+        if not torch.equal(got, want):
+            fail(f"B8 gather_rows ({m}, 2) x {l} differs from its plain version")
+        del got, want
+        reps = 50 if l < (1 << 20) else 10
+        ms = event_ms(lambda: probe.gather_rows(table, idx), reps)
+        plain_ms = event_ms(lambda: probe.gather_rows_plain(table, idx), reps)
+        lib_ms = event_ms(lambda: torch.index_select(table, 0, idx), reps)
+        log(f"B8 gather_rows ({m}, 2) x {l}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
+        # Bytes: the indices and the rows they name read once, the rows written once.
+        this = kernel_record("gather_rows", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:178", 0.0, ms,
+                             plain_ms, nbytes=l * (4 + 8 + 8), flops=0, library_ms=lib_ms)
+        log_bound(this)
+        rec = rec or this  # the record carries the bench shape
+        del table, idx
+    records.append(rec)
     return records
 
 
@@ -428,16 +689,34 @@ def main_path(dev, card: str):
             fail(f"plain-version rerun differs in {name}")
     log("plain-version rerun of chunk 0: frames, votes, found, best_frame equal")
 
+    # B8 is called by no module (nor is its TPU counterpart): drive it here
+    # on what the probe stage gathers, the packed2 words of chunk 0's kept
+    # hits, and decode their frames.
+    from sgtd_tpu_torch.match.search import probe_and_hits
+
+    ph = probe_and_hits(db, build_descriptors(chunks[0], cfg.desc, cfg.caps), cfg.desc, cfg.search, cfg.caps)
+    live = ph.sel_frame < db.num_frames
+    rows = ph.sel_row[live]
+    words = probe.gather_rows(db.packed2, rows)
+    frames = (words[:, 1] >> 16) & 0xFFFF
+    if not (torch.equal(frames, ph.sel_frame[live]) and torch.equal(frames, db.frame_ids[rows.long()])):
+        fail("B8 gather_rows: the kept hits' packed2 words decode to other frames than the probe stage's")
+    b8_launches = read_counts()[7]
+    if b8_launches <= 0:
+        fail("B8 gather_rows was not launched")
+    log(f"B8 gather_rows on chunk 0's {rows.numel()} kept hits: frames equal to the probe stage's "
+        f"and to frame_ids ({b8_launches} launch)")
+
     times = []
     for _ in range(REPS):
         times.append(sum(timed_ms(lambda q=q: localize(db, q, cfg)) for q in chunks) / 1e3)
     scans_s = [NUM_QUERIES / s for s in times]
     log(f"steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
         f"chunk {CHUNK}, synchronized per chunk) [{card}]")
-    return cfg, db, world, queries, chunks
+    return b8_launches, (cfg, db, world, queries, chunks)
 
 
-def refined_stages(db, graphs, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg):
+def refined_stages(db, graphs, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg, rerank_k: int):
     """``localize_refined`` on one chunk, stage by stage through the port's
     public functions, synchronized after each: (RefinedResult, pick, ms per
     stage)."""
@@ -466,15 +745,15 @@ def refined_stages(db, graphs, q_clouds, q_masks, map_clouds, map_masks, map_cov
     src_cov = point_covariances(q_clouds, q_masks, cfg.gicp)
     tick("query_covariances")
     # gicp_rerank's body with the source covariances timed apart.
-    frames_k = res.frames[:, :RERANK_K].long()
-    inits = se3.rt_to_mat(res.rot[:, :RERANK_K], res.trans[:, :RERANK_K])
-    per_k = lambda x: x[:, None].expand((x.shape[0], RERANK_K) + x.shape[1:])
+    frames_k = res.frames[:, :rerank_k].long()
+    inits = se3.rt_to_mat(res.rot[:, :rerank_k], res.trans[:, :rerank_k])
+    per_k = lambda x: x[:, None].expand((x.shape[0], rerank_k) + x.shape[1:])
     out = gicp_align(per_k(q_clouds), per_k(q_masks), map_clouds[frames_k], map_masks[frames_k],
                      inits, cfg.gicp, src_cov=per_k(src_cov), tgt_cov=map_covs[frames_k])
     tick("lm_loop")
     pick, use, refined = rerank_pick(
         out.fitness_gated, out.inlier_frac, db.frame_poses[frames_k] @ out.transform,
-        res.poses[:, :RERANK_K], res.found, cfg.gicp,
+        res.poses[:, :rerank_k], res.found, cfg.gicp,
     )
     rows = torch.arange(pick.shape[0], device=pick.device)
     result = RefinedResult(
@@ -565,7 +844,7 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
         fail(f"refined success rate {sr:.4f} below {SR_GATE}")
 
     # Chunk 0 stage by stage; the same chunk with B4/B5 as plain versions.
-    args = (db, chunks[0], q_clouds[sl[0]], q_masks[sl[0]], map_clouds, map_masks, map_covs, cfg)
+    args = (db, chunks[0], q_clouds[sl[0]], q_masks[sl[0]], map_clouds, map_masks, map_covs, cfg, RERANK_K)
     staged, pick, _ = refined_stages(*args)
     dt, dr = pose_gap(staged.pose, results[0].pose)
     if dt > POS_TOL_M or dr > ROT_TOL_RAD or not torch.equal(staged.refined, results[0].refined):
@@ -584,9 +863,9 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     log(f"plain-version (B4, B5) rerun of chunk 0: pick, refined, found equal; poses within "
         f"{dt:.3e} m / {dr:.3e} rad")
 
-    splits = [refined_stages(*args)[2] for _ in range(5)]
+    splits = [refined_stages(*args)[2] for _ in range(3)]
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-    log("refined chunk stage split, ms (median of 5, synchronized per stage): "
+    log("refined chunk stage split, ms (median of 3, synchronized per stage): "
         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f"; total {sum(split.values()):.2f} [{card}]")
 
@@ -600,7 +879,98 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     scans_s = [NUM_QUERIES / s for s in times]
     log(f"refined steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
         f"chunk {CHUNK}, rerank_k {RERANK_K}, synchronized per chunk) [{card}]")
-    return launches
+    inputs = (db, chunks, sl, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg)
+    return launches, inputs, results, gts, split, statistics.median(scans_s)
+
+
+def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scans_s) -> int:
+    """Phase 6: phase 4's inputs with every LM trip as one launch of B7.
+    Returns B7's launches on the path."""
+    from sgtd_tpu_torch.eval.metrics import success_rate
+    from sgtd_tpu_torch.match.pipeline import localize_refined
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN
+    from sgtd_tpu_torch.ops import gicp as gicp_ops
+    from sgtd_tpu_torch.refine import gicp
+
+    db, chunks, sl, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg = inputs
+    run = lambda q, s: localize_refined(
+        db, q, q_clouds[s], q_masks[s], map_clouds, map_masks, map_covs, cfg, rerank_k=RERANK_K)
+    stage_args = lambda i: (db, chunks[i], q_clouds[sl[i]], q_masks[sl[i]], map_clouds, map_masks, map_covs,
+                            cfg, RERANK_K)
+    unfused_picks = [refined_stages(*stage_args(i))[1] for i in range(len(chunks))]
+
+    with mock.patch.object(gicp, "_USE_FUSED_LINEARIZE", True):
+        reset_counts()
+        torch.cuda.synchronize()
+        results = [run(q, s) for q, s in zip(chunks, sl)]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"fused refined path kernel launches (B1-B8): {counts}")
+        n_chunks, trips = len(chunks), cfg.gicp.max_iterations
+        if min(counts[:3]) <= 0 or counts[4] <= 0:
+            fail(f"a kernel of the fused refined path was never launched: {counts}")
+        if counts[3] != n_chunks or not n_chunks <= counts[6] <= trips * n_chunks:
+            fail(f"fused path: B4 must launch once a chunk ({n_chunks}) and B7 between 1 and "
+                 f"{trips} times a chunk: {counts}")
+        log(f"fused path: B7 launched {counts[6]} times ({trips} LM trips x {n_chunks} chunks = "
+            f"{trips * n_chunks}), B4 {counts[3]} (the final fitness pass of each chunk)")
+
+        pose = torch.cat([r.pose for r in results])
+        found = torch.cat([r.result.found for r in results])
+        truncated = torch.cat([r.result.truncated for r in results]).cpu().numpy()
+        if tuple(pose.shape) != (NUM_QUERIES, 4, 4) or not bool(torch.isfinite(pose).all()):
+            fail(f"fused refined poses: shape {tuple(pose.shape)} or non-finite values")
+        n_trunc = int(((truncated & TRUNC_SCAN) != 0).sum())
+        sr = success_rate(gts, pose.cpu().numpy(), found.cpu().numpy(), cfg)
+        log(f"fused refined bench world: SR={sr:.4f} TRUNC_SCAN={n_trunc} [{card}]")
+        if n_trunc or sr < SR_GATE:
+            fail(f"fused path: {n_trunc} truncated scans, success rate {sr:.4f}")
+        for name, a, b in (("found", found, torch.cat([r.result.found for r in unfused])),
+                           ("refined", torch.cat([r.refined for r in results]),
+                            torch.cat([r.refined for r in unfused]))):
+            if not torch.equal(a, b):
+                fail(f"fused path: {name} differs from the unfused path's")
+        unfused_pose = torch.cat([r.pose for r in unfused])
+        dt, dr = pose_gap(pose, unfused_pose)
+        gaps = (pose[:, :3, 3] - unfused_pose[:, :3, 3]).double().norm(dim=-1)
+        log(f"fused against unfused pose gaps: median {gaps.median().item():.3e} m, "
+            f"{int((gaps > 1e-3).sum())} of {NUM_QUERIES} above 1e-3 m, max {dt:.3e} m / {dr:.3e} rad")
+        if dt > FUSED_POS_TOL_M or dr > ROT_TOL_RAD:
+            fail(f"fused path: poses differ from the unfused path's by {dt} m / {dr} rad")
+        staged = [refined_stages(*stage_args(i)) for i in range(n_chunks)]
+        if not torch.equal(torch.cat([s[1] for s in staged]), torch.cat(unfused_picks)):
+            fail("fused path: the rerank's picks differ from the unfused path's")
+        log(f"fused against unfused, all {NUM_QUERIES} queries: pick, found, refined equal; poses within "
+            f"{dt:.3e} m / {dr:.3e} rad")
+
+        # Chunk 0 with B7 as its plain version.
+        with mock.patch.object(gicp_ops, "linearize_gicp", gicp_ops.linearize_gicp_plain):
+            plain, plain_pick, _ = refined_stages(*stage_args(0))
+        dt, dr = pose_gap(plain.pose, staged[0][0].pose)
+        if not torch.equal(plain_pick, staged[0][1]) or dt > FUSED_POS_TOL_M or dr > ROT_TOL_RAD:
+            fail(f"fused path: the plain-version (B7) rerun differs in pick or by {dt} m / {dr} rad")
+        log(f"plain-version (B7) rerun of chunk 0: pick equal; poses within {dt:.3e} m / {dr:.3e} rad")
+
+    # Unfused and fused in turns (u, f, f, u) on the same card and host:
+    # the stage split of chunk 0 and the steady state over all chunks.
+    splits, times = {False: [], True: []}, {False: [], True: []}
+    for _ in range(REPS):
+        for fused in (False, True, True, False):
+            with mock.patch.object(gicp, "_USE_FUSED_LINEARIZE", fused):
+                splits[fused].append(refined_stages(*stage_args(0))[2])
+                times[fused].append(sum(timed_ms(lambda q=q, s=s: run(q, s)) for q, s in zip(chunks, sl)) / 1e3)
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items()) + f"; total {sum(d.values()):.2f}"
+    median_split = lambda ss: {k: statistics.median(s[k] for s in ss) for k in ss[0]}
+    log(f"refined chunk stage split in turns, ms (median of {2 * REPS}): fused {fmt(median_split(splits[True]))} "
+        f"[{card}]")
+    log(f"   unfused, same chunk: {fmt(median_split(splits[False]))}")
+    log(f"   unfused in phase 4: {fmt(unfused_split)}")
+    scans = {f: [NUM_QUERIES / s for s in times[f]] for f in times}
+    log(f"refined steady state in turns: fused scans/s {scans[True]} (median "
+        f"{statistics.median(scans[True]):.2f}); unfused {scans[False]} (median "
+        f"{statistics.median(scans[False]):.2f}; {unfused_scans_s:.2f} in phase 4); chunk {CHUNK}, "
+        f"rerank_k {RERANK_K}, synchronized per chunk [{card}]")
+    return counts[6]
 
 
 def scale_world(num_map: int):
@@ -798,6 +1168,146 @@ def large_map(dev, card: str, num_map: int) -> int:
     return counts[5]
 
 
+def hard_world_inputs():
+    """The hard world of tools/hard_eval.py:50-127 on the host: (cfg, map
+    graphs, query graphs, query_cloud_fn, map_cloud_fn, GICP config)."""
+    from sgtd_tpu_torch.config import GicpConfig, SGTDConfig
+    from sgtd_tpu_torch.data.synthetic import make_hard_world, observe, render_planar_cloud
+    from sgtd_tpu_torch.ops.voxel import load_query_cloud
+
+    rng = np.random.default_rng(HARD_SEED)
+    cfg = SGTDConfig()
+    world = make_hard_world(rng, num_map_frames=NUM_MAP, num_queries=NUM_QUERIES,
+                            n_motifs=HARD_MOTIFS, unique_per_block=HARD_UNIQUE)
+    maps = [observe(world, p, cfg, rng, center_noise_m=0.05) for p in world.map_poses]
+    queries = [observe(world, p, cfg, rng, **HARD_OBS) for p in world.query_poses]
+    gicp = GicpConfig(enable=True, engine="gicp", max_points=SRC_PTS, leaf_size=HARD_LEAF,
+                      max_corr_dist_m=HARD_GATE_M)
+
+    def q_fn(i):
+        pts, m = render_planar_cloud(world, world.query_poses[i], np.random.default_rng(7000 + i),
+                                     max_points=CLOUD_PTS)
+        return load_query_cloud(pts[m], HARD_LEAF, SRC_PTS)
+
+    def m_fn(fid):
+        return render_planar_cloud(world, world.map_poses[fid], np.random.default_rng(8000 + fid),
+                                   max_points=CLOUD_PTS)
+
+    return cfg, maps, queries, q_fn, m_fn, gicp
+
+
+def found_frames_sha256(found, best_frame) -> str:
+    """SHA-256 of the queries' found (uint8) and best_frame (int32)."""
+    return hashlib.sha256(np.asarray(found, np.uint8).tobytes()
+                          + np.asarray(best_frame, np.int32).tobytes()).hexdigest()
+
+
+def hard_world(dev, card: str) -> None:
+    """Phase 7: ``evaluate`` on the hard world, descriptor-only, refined
+    unfused and refined fused, and one query through the TRUNC_SCAN
+    fallback."""
+    from sgtd_tpu_torch.db.artifacts import build_map_artifacts
+    from sgtd_tpu_torch.eval import runner
+    from sgtd_tpu_torch.eval.metrics import rpe
+    from sgtd_tpu_torch.graph.types import stack_graphs
+    from sgtd_tpu_torch.match.pipeline import localize, localize_refined
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN
+    from sgtd_tpu_torch.refine import gicp
+
+    t0 = time.perf_counter()
+    cfg, maps, queries, q_fn, m_fn, gcfg = hard_world_inputs()
+    index = runner.build_map_index(maps, cfg, dev)
+    log(f"hard world: {NUM_MAP} keyframes, {NUM_QUERIES} queries; rows={index.report.num_rows} "
+        f"bucket_cap={index.config.caps.bucket_cap}; graphs and DB {time.perf_counter() - t0:.2f} s "
+        f"(DB build {index.build_seconds:.3f} s) [{card}]")
+
+    def table(name, out):
+        keys = ("success_rate", "rmse_trans_m", "rmse_rot_deg", "mean_trans_m", "mean_rot_deg",
+                "recall_at_1", "recall_at_5", "recall_at_10", "mean_time_ms", "compile_seconds",
+                "artifact_build_seconds", "query_cloud_load_seconds")
+        log(f"hard world {name}: total {out['total']}, " + ", ".join(f"{k} {out[k]:.4f}" for k in keys)
+            + f" [{card}]")
+
+    # Descriptor-only, and the digest of the same calls' found / best_frame.
+    out_desc = runner.evaluate(index, queries, batch_size=CHUNK)
+    table("descriptor-only", out_desc)
+    chunks = [stack_graphs(queries[i : i + CHUNK], dev) for i in range(0, NUM_QUERIES, CHUNK)]
+    res = [localize(index.db, q, index.config) for q in chunks]
+    found = torch.cat([r.found for r in res]).cpu().numpy()
+    best_frame = torch.cat([r.best_frame for r in res]).cpu().numpy()
+    trunc = torch.cat([r.truncated for r in res]).cpu().numpy()
+    got = {"rows": index.report.num_rows, "success_rate": out_desc["success_rate"],
+           "sha256": found_frames_sha256(found, best_frame)}
+    log(f"hard world descriptor leg: {got}; TRUNC_SCAN queries {int(((trunc & TRUNC_SCAN) != 0).sum())}")
+    if got != REFERENCE_HARD:
+        fail(f"hard world: the descriptor leg {got} differs from the JAX reference's {REFERENCE_HARD}")
+    sr_desc = out_desc["success_rate"]
+    if not 0.80 <= sr_desc < 1.0:
+        fail(f"hard world: descriptor-only success rate {sr_desc} outside [0.80, 1.0)")
+
+    # Refined, unfused and fused, on artifacts built once.
+    index.config = index.config.replace(gicp=gcfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art = build_map_artifacts(m_fn, index.db.num_frames, gcfg, f_pad=index.db.frame_poses.shape[0], device=dev)
+    torch.cuda.synchronize()
+    log(f"hard world map artifacts: {tuple(art.clouds.shape)} clouds, covariances through B5 in "
+        f"{read_counts()[4]} launches; {time.perf_counter() - t0:.2f} s with the host renders [{card}]")
+    kw = dict(batch_size=CHUNK, query_cloud_fn=q_fn, rerank_k=HARD_RERANK_K, map_artifacts=art)
+    clouds = [q_fn(i) for i in range(NUM_QUERIES)]
+    q_clouds = torch.from_numpy(np.stack([c for c, _ in clouds])).to(dev)
+    q_masks = torch.from_numpy(np.stack([m for _, m in clouds])).to(dev)
+    outs, frames = {}, {}
+    for name, fused in (("refined unfused", False), ("refined fused", True)):
+        with mock.patch.object(gicp, "_USE_FUSED_LINEARIZE", fused):
+            reset_counts()
+            outs[name] = runner.evaluate(index, queries, **kw)
+            counts = read_counts()
+            table(name, outs[name])
+            log(f"hard world {name} kernel launches (B1-B8): {counts}")
+            if (counts[6] > 0) != fused or counts[3] <= 0:
+                fail(f"hard world {name}: B7 must launch only when fused, B4 always: {counts}")
+            # The frame each query's pose was refined against: the rerank's pick.
+            picks = []
+            for i, q in enumerate(chunks):
+                s = slice(i * CHUNK, (i + 1) * CHUNK)
+                out, pick, _ = refined_stages(index.db, q, q_clouds[s], q_masks[s], art.clouds, art.masks,
+                                              art.covs, index.config, HARD_RERANK_K)
+                picked = out.result.frames.gather(1, pick[:, None])[:, 0]
+                picks.append(torch.where(out.refined, picked, -1))
+            frames[name] = torch.cat(picks)
+        if outs[name]["success_rate"] < sr_desc + 0.02:
+            fail(f"hard world {name}: success rate {outs[name]['success_rate']} is not 0.02 above "
+                 f"the descriptor-only {sr_desc}")
+    if not torch.equal(frames["refined unfused"], frames["refined fused"]):
+        fail("hard world: fused and unfused reranks pick different frames")
+    log(f"hard world: fused and unfused pick the same frame on all {NUM_QUERIES} queries; SR "
+        f"{sr_desc:.4f} -> {outs['refined unfused']['success_rate']:.4f} (unfused), "
+        f"{outs['refined fused']['success_rate']:.4f} (fused)")
+
+    # One query that the descriptor leg got right, under a scan cap far
+    # below its scan: localize_exact, then _rerank_single, on the card.
+    ok = [i for i in range(NUM_QUERIES) if found[i]
+          and (lambda e: e[0] < cfg.success_trans_m and e[1] < cfg.success_rot_deg)(
+              rpe(np.asarray(queries[i].pose), res[i // CHUNK].poses[i % CHUNK, 0].cpu().numpy()))]
+    qi = ok[0]
+    capped = dataclasses.replace(index, config=index.config.replace(
+        caps=dataclasses.replace(index.config.caps, max_scan_slots=1024)))
+    flagged = localize(capped.db, stack_graphs(queries[qi : qi + 1], dev), capped.config).truncated
+    if not bool((flagged & TRUNC_SCAN) != 0):
+        fail("hard world: the 1,024-slot cap left TRUNC_SCAN unset")
+    with mock.patch.object(runner, "_rerank_single", wraps=runner._rerank_single) as rerank, \
+            mock.patch.object(runner, "localize_exact", wraps=runner.localize_exact) as exact:
+        out = runner.evaluate(capped, queries[qi : qi + 1], batch_size=1, query_cloud_fn=lambda i: q_fn(qi + i),
+                              rerank_k=HARD_RERANK_K, map_artifacts=art)
+    if exact.call_count != 1 or rerank.call_count != 1 or out["success_rate"] != 1.0:
+        fail(f"hard world fallback: localize_exact x{exact.call_count}, _rerank_single "
+             f"x{rerank.call_count}, success rate {out['success_rate']}")
+    log(f"hard world fallback, query {qi} under a 1,024-slot cap: TRUNC_SCAN set, localize_exact and "
+        f"_rerank_single ran once each, pose error {out['mean_trans_m']:.4f} m / {out['mean_rot_deg']:.4f} deg")
+
+
 def ptxas_usage(text: str) -> list:
     """'entry: Used N registers, ...' for each kernel in nvcc's -Xptxas -v
     output (mangled entry names)."""
@@ -840,16 +1350,25 @@ def main() -> None:
     log("ptxas: " + " | ".join(ptxas_usage(path.with_suffix(".log").read_text())))
 
     records = check_kernels(dev, card)
-    ctx = main_path(dev, card)
-    launches = refined_path(dev, card, *ctx)
+    b8_launches, ctx = main_path(dev, card)
+    launches, *refined = refined_path(dev, card, *ctx)
     del ctx
+    b6_launches = large_map(dev, card, args.scale_frames)
+    b7_launches = fused_path(dev, card, *refined)
+    del refined
     torch.cuda.empty_cache()
-    launches.append(large_map(dev, card, args.scale_frames))
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"sgtd_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for (name, src, replaces, err, ms, plain_ms), n in zip(records, launches)
-    ]}), flush=True)
+    hard_world(dev, card)
+    # Launches on the path that runs each kernel: B1-B5 the refined main
+    # path (phase 4), B6 the large map (phase 5), B7 the fused refined
+    # path (phase 6); B8, which no module calls, the row-gather drive at
+    # the end of phase 3.
+    launches += [b6_launches, b7_launches, b8_launches]
+    for rec, n in zip(records, launches):
+        rec["launches"] = n
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
+    if loaded:
+        fail(f"modules of JAX or of the JAX package were loaded: {loaded}")
+    print(json.dumps({"kernels": records}), flush=True)
     log(f"total: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

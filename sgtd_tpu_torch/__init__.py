@@ -1,9 +1,9 @@
 """sgtd_tpu_torch — the PyTorch/CUDA port of ``sgtd_tpu`` for NVIDIA Hopper.
 
 Module paths mirror ``sgtd_tpu`` so each counterpart is easy to find. The
-port imports torch and numpy and never JAX; the only module of
-``sgtd_tpu`` it shares is the plain-dataclass configuration
-(``sgtd_tpu.config``), so both packages take one config type.
+port imports torch and numpy, never JAX and no module of ``sgtd_tpu``: it
+keeps its own copy of the configuration dataclasses
+(``sgtd_tpu_torch.config``; ``interop.config_from_reference`` converts).
 
 Every stage carries a leading query (or frame) axis in place of the
 reference's ``vmap``. Where the reference calls a Pallas kernel, the port

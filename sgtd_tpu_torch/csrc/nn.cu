@@ -11,7 +11,8 @@
 //
 // the expansion and the rounding order the reference computes on the CPU
 // (XLA fuses those products into FMAs); every operation is a
-// round-to-nearest intrinsic so nvcc cannot re-associate or contract it.
+// round-to-nearest intrinsic so nvcc cannot re-associate or contract it
+// (nn_common.cuh, shared with the fused GICP linearization of gicp.cu).
 //   nn1: idx[p, n] = the lowest index attaining min_t d(q[p, n], r[p, t]),
 //        sqd[p, n] = that minimum.
 //   knn: idx[p, n, :k] = the k smallest d in ascending order, ties to the
@@ -35,20 +36,13 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "nn_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;
+using namespace sgtd;  // kThreads, kTile, sq_norm, sq_dist, load_tile, nearest
+
 constexpr int kMaxK = 32;
-
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
-}
-
-__device__ __forceinline__ float sq_dist(const float4 q, const float4 r) {
-  const float cross = __fmaf_rn(q.z, r.z, __fmaf_rn(q.y, r.y, __fmul_rn(q.x, r.x)));
-  return __fsub_rn(__fadd_rn(q.w, r.w), __fmul_rn(2.0f, cross));
-}
 
 // Query point n of the problem with |q|^2 in .w (zeros past the end).
 __device__ __forceinline__ float4 load_query(const float* __restrict__ query,
@@ -63,16 +57,6 @@ __device__ __forceinline__ float4 load_query(const float* __restrict__ query,
   return q;
 }
 
-// Reference points [base, base + n) of one problem into shared memory.
-__device__ __forceinline__ void load_tile(const float* __restrict__ ref,
-                                          int base, int n, float4* tile) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float* p = ref + 3 * static_cast<int64_t>(base + i);
-    const float x = p[0], y = p[1], z = p[2];
-    tile[i] = make_float4(x, y, z, sq_norm(x, y, z));
-  }
-}
-
 __global__ void nn1_kernel(const float* __restrict__ query,
                            const float* __restrict__ ref,
                            int32_t* __restrict__ out_idx,
@@ -84,21 +68,9 @@ __global__ void nn1_kernel(const float* __restrict__ query,
   const float4 q = load_query(query, row, n < N);
   const float* r = ref + prob * 3 * static_cast<int64_t>(T);
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_i = 0;
-  for (int base = 0; base < T; base += kTile) {
-    const int len = min(kTile, T - base);
-    __syncthreads();
-    load_tile(r, base, len, tile);
-    __syncthreads();
-    for (int j = 0; j < len; ++j) {
-      const float d = sq_dist(q, tile[j]);
-      if (d < best) {
-        best = d;
-        best_i = base + j;
-      }
-    }
-  }
+  float best;
+  int best_i;
+  nearest(q, r, T, tile, &best, &best_i);
   if (n < N) {
     out_idx[row] = best_i;
     out_sqd[row] = best;

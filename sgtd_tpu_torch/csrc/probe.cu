@@ -1,5 +1,5 @@
 // B1 frame_votes and B6 frame_votes_wide: the per-frame vote tally of
-// the probe stage.
+// the probe stage; B8 gather_rows (at the end of the file): a row gather.
 //
 // Replaces the TPU kernels sgtd_tpu/ops/pallas_probe.py::frame_votes (a
 // tiled one-hot MXU matmul) and ::frame_votes_wide (a hi/lo one-hot outer
@@ -132,4 +132,64 @@ extern "C" int sgtd_frame_votes_wide(const void* hit, const void* frame,
           ? launch_wide<true>(h, fr, out, B, L, f_pad, s)
           : launch_wide<false>(h, fr, out, B, L, f_pad, s);
   return static_cast<int>(err);
+}
+
+// B8 gather_rows: out[i, :] = table[idx[i], :].
+//
+// Replaces the TPU kernel sgtd_tpu/ops/pallas_probe.py::gather_rows (the
+// table resident in VMEM, rows copied one dynamic sublane slice at a time:
+// a lowering experiment for the probe stage's row gathers, which nothing in
+// the package calls). Bound on this card: bytes, L x W x 4 written and as
+// many read (the rows of idx; the table itself is touched only there), plus
+// 4 L of indices. Design: a pure indexed copy, one thread per output row
+// when W = 2 (the DB's packed2 words: one 64-bit load and store), else one
+// thread per output word. Indices must lie in [0, M): the caller's duty, as
+// in the reference.
+
+namespace {
+
+constexpr int kGatherThreads = 256;
+
+__global__ void gather_rows2_kernel(const int2* __restrict__ table,
+                                    const int32_t* __restrict__ idx,
+                                    int2* __restrict__ out, int64_t L) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < L) out[i] = table[idx[i]];
+}
+
+__global__ void gather_rows_kernel(const int32_t* __restrict__ table,
+                                   const int32_t* __restrict__ idx,
+                                   int32_t* __restrict__ out, int64_t L,
+                                   int W) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (o < L * W) {
+    const int64_t i = o / W;
+    out[o] = table[static_cast<int64_t>(idx[i]) * W + (o - i * W)];
+  }
+}
+
+}  // namespace
+
+// table (M, W) int32, idx (L,) int32 in [0, M) -> out (L, W) int32. With
+// W = 2, table and out must be 8-byte aligned. L * W < 2^31 * 256.
+extern "C" int sgtd_gather_rows(const void* table, const void* idx, void* out,
+                                long long L, int W, void* stream) {
+  if (L > 0 && W > 0) {
+    auto s = static_cast<cudaStream_t>(stream);
+    if (W == 2) {
+      const unsigned blocks =
+          static_cast<unsigned>((L + kGatherThreads - 1) / kGatherThreads);
+      gather_rows2_kernel<<<blocks, kGatherThreads, 0, s>>>(
+          static_cast<const int2*>(table), static_cast<const int32_t*>(idx),
+          static_cast<int2*>(out), L);
+    } else {
+      const int64_t words = static_cast<int64_t>(L) * W;
+      const unsigned blocks =
+          static_cast<unsigned>((words + kGatherThreads - 1) / kGatherThreads);
+      gather_rows_kernel<<<blocks, kGatherThreads, 0, s>>>(
+          static_cast<const int32_t*>(table), static_cast<const int32_t*>(idx),
+          static_cast<int32_t*>(out), L, W);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }

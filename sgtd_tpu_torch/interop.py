@@ -2,19 +2,23 @@
 
 Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 ``np.asarray`` takes) to the port's tensors on an explicit device and
-back, carries keyframe clouds, masks and GICP covariances onto a device
-(padded to the DB's frame count), pads a DB's frame axis, and reads the reference's on-disk
-descriptor-DB format (v2), so a map built by ``sgtd_tpu`` is served by
-the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
+back, its config dataclasses, map artifacts and map index to the port's,
+carries keyframe clouds, masks and GICP covariances onto a device (padded
+to the DB's frame count), pads a DB's frame axis, and reads the
+reference's on-disk descriptor-DB format (v2), so a map built by
+``sgtd_tpu`` is served by the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
 cross as their int32 bit patterns.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from sgtd_tpu_torch.db.database import DescriptorDB
+from sgtd_tpu_torch.config import SGTDConfig
+from sgtd_tpu_torch.db.database import DBBuildReport, DescriptorDB
 from sgtd_tpu_torch.desc.triangles import Descriptors
 from sgtd_tpu_torch.graph.types import SemanticGraph
 
@@ -39,6 +43,18 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 def _convert(cls, obj, device):
     return cls(*(_to_tensor(getattr(obj, f), device) for f in cls._fields))
+
+
+def config_from_reference(cfg, cls=SGTDConfig):
+    """The port's config with the values of a reference config: any object
+    with the same dataclass fields (``sgtd_tpu.config.SGTDConfig``, or one
+    of its parts with the matching ``cls``), nested configs included."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(cfg, f.name)
+        sub = type(getattr(cls(), f.name))
+        kw[f.name] = config_from_reference(v, sub) if dataclasses.is_dataclass(sub) else v
+    return cls(**kw)
 
 
 def graph_from_numpy(graph, device) -> SemanticGraph:
@@ -84,7 +100,7 @@ def pad_frames(db: DescriptorDB, f_pad: int) -> DescriptorDB:
     return db._replace(frame_poses=fp, frame_valid=fv, frame_start=fs)
 
 
-def map_clouds_to_device(clouds, masks, covs=None, device="cpu", f_pad: int | None = None):
+def map_clouds_to_device(clouds, masks, covs=None, device="cuda", f_pad: int | None = None):
     """Keyframe clouds (F, P, 3), masks (F, P) and covariances
     (F, P, 3, 3) | None as tensors on ``device``, padded with empty clouds
     (zero points, mask False, identity covariances, as the reference's
@@ -105,6 +121,40 @@ def map_clouds_to_device(clouds, masks, covs=None, device="cpu", f_pad: int | No
     else:
         out.append(None)
     return tuple(out)
+
+
+def map_artifacts_from_numpy(art, device):
+    """Reference ``MapArtifacts`` (fields as NumPy arrays) as the port's, on
+    ``device``. Voxel maps do not cross: VGICP is not ported."""
+    from sgtd_tpu_torch.db.artifacts import MapArtifacts
+
+    return MapArtifacts(
+        clouds=_to_tensor(np.asarray(art.clouds, np.float32), device),
+        masks=_to_tensor(np.asarray(art.masks, bool), device),
+        covs=_to_tensor(np.asarray(art.covs, np.float32), device),
+        vmaps=None,
+    )
+
+
+def map_artifacts_to_numpy(art) -> dict:
+    """The port's ``MapArtifacts`` as the reference's field arrays."""
+    return {
+        "clouds": art.clouds.cpu().numpy(), "masks": art.masks.cpu().numpy(),
+        "covs": art.covs.cpu().numpy(), "vmaps": None,
+    }
+
+
+def map_index_from_reference(index, device):
+    """A reference ``eval.runner.MapIndex`` (DB, tuned config, build
+    report) as the port's, its DB on ``device``."""
+    from sgtd_tpu_torch.eval.runner import MapIndex
+
+    return MapIndex(
+        db=db_from_numpy(index.db, device),
+        config=config_from_reference(index.config),
+        build_seconds=index.build_seconds,
+        report=DBBuildReport(**dataclasses.asdict(index.report)),
+    )
 
 
 def to_numpy(result):

@@ -25,7 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
-SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu")
+SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu", "gicp.cu")
+# Headers the sources include: hashed with them, never compiled alone.
+HEADERS = ("nn_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # Entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
     # hit, frame, out_counts, B, L, f_pad, stream
@@ -41,11 +44,16 @@ SIGNATURES = {
     # offsets, payload, out, B, NJ, C, l_max, stream
     "sgtd_expand_jobs": (_P, _P, _P, _I, _I, _I, _I, _P),
     # rot, t, vq, vdb, pair_valid, out, N, H, P, thr2, stream
-    "sgtd_hypothesis_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "sgtd_hypothesis_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # query, ref, out_idx, out_sqd, P, N, T, stream
     "sgtd_nn1": (_P, _P, _P, _P, _I, _I, _I, _P),
     # query, ref, out_idx, P, N, T, k, stream
     "sgtd_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # T, src, src_cov6, src_mask, tgt_eff, payload, partial, sums, aux,
+    # P, S, Tn, gate2, stream
+    "sgtd_linearize_gicp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # table, idx, out, L, W, stream
+    "sgtd_gather_rows": (_P, _P, _P, ctypes.c_longlong, _I, _P),
 }
 
 
@@ -66,7 +74,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,5 +1,5 @@
-"""B1 ``frame_votes`` and B6 ``frame_votes_wide``: the per-frame vote tally
-(port of sgtd_tpu.ops.pallas_probe.frame_votes / frame_votes_wide; kernels
+"""B1 ``frame_votes`` and B6 ``frame_votes_wide``: the per-frame vote tally;
+B8 ``gather_rows``: a row gather (port of sgtd_tpu.ops.pallas_probe; kernels
 in ``csrc/probe.cu``).
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
@@ -15,6 +15,7 @@ from sgtd_tpu_torch.ops import _build
 # Kernel launches since the last reset (the main-path check reads them).
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+GATHER_LAUNCHES = 0
 
 # Widest frame axis of B1; B6 takes any.
 MAX_F_PAD = 2048
@@ -77,3 +78,38 @@ def _launch(entry: str, hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> t
     )
     _build.check(rc, entry)
     return counts.to(torch.float32)
+
+
+def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of B8: advanced indexing."""
+    return table[idx.long()]
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i, :] = table[idx[i], :]``: table (M, W) int32 (for the DB's
+    ``packed2``, the bit patterns of the reference's uint32 words), idx
+    (L,) int32 -> (L, W) int32. Indices must lie in [0, M): the kernel does
+    not check them, as the reference's does not. No module of the port
+    calls it (none of the reference calls its TPU counterpart, a lowering
+    experiment for the probe stage's row gathers)."""
+    global GATHER_LAUNCHES
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    if table.device.type != "cuda" or idx.device != table.device:
+        raise ValueError(f"gather_rows: CUDA tensors required, got {table.device}/{idx.device}")
+    if table.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError(f"gather_rows: int32 table and idx, got {table.dtype}/{idx.dtype}")
+    if table.dim() != 2 or idx.dim() != 1 or table.shape[1] < 1:
+        raise ValueError(f"gather_rows: (M, W) table and (L,) idx, got {tuple(table.shape)}/{tuple(idx.shape)}")
+    table, idx = table.contiguous(), idx.contiguous()
+    l, w = idx.shape[0], table.shape[1]
+    out = torch.empty((l, w), dtype=torch.int32, device=table.device)
+    if w == 2 and (table.data_ptr() % 8 or out.data_ptr() % 8):
+        raise ValueError("gather_rows: a 2-word table must be 8-byte aligned")
+    rc = _build.library().sgtd_gather_rows(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), l, w,
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _build.check(rc, "sgtd_gather_rows")
+    GATHER_LAUNCHES += 1
+    return out

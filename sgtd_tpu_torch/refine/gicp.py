@@ -15,8 +15,9 @@ hand-written kernels B5 ``knn`` (covariances) and B4 ``nn1``
 (correspondences, fitness) of ``ops.nn``; the 6x6 reductions and 3x3
 products are plain torch (TF32 off at the entry points).
 
-Not ported: the fused Pallas linearization (``_gicp_align_fused``, kernel
-B7), off by default in the reference (refine/gicp.py:139).
+With ``_USE_FUSED_LINEARIZE`` set, each linearization is one launch of
+kernel B7 (``ops.gicp.linearize_gicp``) in place of B4 and the chain of
+small tensor operations behind it; the final fitness pass stays B4.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from sgtd_tpu_torch.config import GicpConfig
 from sgtd_tpu_torch.geom import se3
+from sgtd_tpu_torch.ops import gicp as gicp_ops
 from sgtd_tpu_torch.ops import nn
 from sgtd_tpu_torch.ops.linalg3 import inv3x3, sym_eig3x3
 from sgtd_tpu_torch.refine.lsq import gn_solve, lm_solve
@@ -115,37 +117,32 @@ def _moved(src: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return s @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
-def gicp_align(
-    src: torch.Tensor,
-    src_mask: torch.Tensor,
-    tgt: torch.Tensor,
-    tgt_mask: torch.Tensor,
-    init_transform: torch.Tensor,
-    cfg: GicpConfig = GicpConfig(),
-    src_cov: torch.Tensor | None = None,
-    tgt_cov: torch.Tensor | None = None,
-) -> GicpResult:
-    """Align each src onto its tgt starting from ``init_transform``.
+# Fused linearization (kernel B7, ops.gicp): the correspondence search,
+# the gate, the Mahalanobis weights and the H, g, y0 sums of one LM trip in
+# one launch. Off by default, as in the reference; read at call time.
+_USE_FUSED_LINEARIZE = False
 
-    src (..., S, 3) / src_mask (..., S), tgt (..., T, 3) / tgt_mask
-    (..., T), init_transform (..., 4, 4), covariances (..., S|T, 3, 3):
-    all with the same leading axes, one problem each.
-    """
-    disable_tf32()
-    if src_cov is None:
-        src_cov = point_covariances(src, src_mask, cfg)
-    if tgt_cov is None:
-        tgt_cov = point_covariances(tgt, tgt_mask, cfg)
-    batch = init_transform.shape[:-2]
-    s_n, t_n = src.shape[-2], tgt.shape[-2]
-    src = src.reshape(-1, s_n, 3)
-    src_mask = src_mask.reshape(-1, s_n)
-    src_cov = src_cov.reshape(-1, s_n, 3, 3)
-    tgt = tgt.reshape(-1, t_n, 3)
-    tgt_mask = tgt_mask.reshape(-1, t_n)
-    tgt_cov = tgt_cov.reshape(-1, t_n, 3, 3)
-    tgt_eff = _displaced(tgt, tgt_mask)
-    p = src.shape[0]
+
+def _error_of(src: torch.Tensor):
+    """error() of the refine.lsq contract for the sources (P, S, 3), on a
+    linearization's aux (b_pts (P, S, 3), M (P, S, 3, 3), w (P, S))."""
+
+    def error(T, aux):
+        """Cost of trial transforms T (P, L, 4, 4) on the correspondences
+        and Mahalanobis terms of the last linearization
+        (fast_gicp_impl.hpp:178-200)."""
+        b_pts, M, w = aux
+        r = b_pts[:, None] - _moved(src, T)  # (P, L, S, 3)
+        Mr = (M[:, None] * r[..., None, :]).sum(-1)
+        return (w[:, None] * (r * Mr).sum(-1)).sum(-1)
+
+    return error
+
+
+def _unfused_callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg: GicpConfig):
+    """linearize and error (the refine.lsq contract) on B4 ``nn1`` and
+    plain tensor operations, over P flat problems."""
+    p, s_n = src.shape[:2]
     gate = math.isfinite(cfg.max_corr_dist_m)
     gate2 = float(torch.tensor(cfg.max_corr_dist_m, dtype=torch.float32) ** 2) if gate else 0.0
     eye = torch.eye(3, dtype=src.dtype, device=src.device)
@@ -178,14 +175,58 @@ def gicp_align(
         # steps per iteration) never gathers again.
         return H, g, y0, (b_pts, M, w)
 
-    def error(T, aux):
-        """Cost of trial transforms T (P, L, 4, 4) on the correspondences
-        and Mahalanobis terms of the last linearization
-        (fast_gicp_impl.hpp:178-200)."""
-        b_pts, M, w = aux
-        r = b_pts[:, None] - _moved(src, T)  # (P, L, S, 3)
-        Mr = (M[:, None] * r[..., None, :]).sum(-1)
-        return (w[:, None] * (r * Mr).sum(-1)).sum(-1)
+    return linearize, _error_of(src)
+
+
+def _gicp_align_fused(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg: GicpConfig):
+    """linearize and error on kernel B7 (reference ``_gicp_align_fused``):
+    one launch per linearization over all P problems and no tensor
+    operation behind it (H, g, y0 and the per-point b, M, w are views of
+    the kernel's outputs); error() is the unfused one, on B7's per-point
+    aux."""
+    payload = gicp_ops.build_gicp_payload(tgt, tgt_mask, tgt_cov)
+    scov6 = gicp_ops.cov6(src_cov)
+    gate = float(cfg.max_corr_dist_m)
+
+    def linearize(T):
+        H, g, y0, aux = gicp_ops.linearize_gicp(T, src, scov6, src_mask, tgt_eff, payload, gate)
+        return H, g, y0, gicp_ops.unpack_aux(aux)
+
+    return linearize, _error_of(src)
+
+
+def gicp_align(
+    src: torch.Tensor,
+    src_mask: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    init_transform: torch.Tensor,
+    cfg: GicpConfig = GicpConfig(),
+    src_cov: torch.Tensor | None = None,
+    tgt_cov: torch.Tensor | None = None,
+) -> GicpResult:
+    """Align each src onto its tgt starting from ``init_transform``.
+
+    src (..., S, 3) / src_mask (..., S), tgt (..., T, 3) / tgt_mask
+    (..., T), init_transform (..., 4, 4), covariances (..., S|T, 3, 3):
+    all with the same leading axes, one problem each.
+    """
+    disable_tf32()
+    if src_cov is None:
+        src_cov = point_covariances(src, src_mask, cfg)
+    if tgt_cov is None:
+        tgt_cov = point_covariances(tgt, tgt_mask, cfg)
+    batch = init_transform.shape[:-2]
+    s_n, t_n = src.shape[-2], tgt.shape[-2]
+    src = src.reshape(-1, s_n, 3)
+    src_mask = src_mask.reshape(-1, s_n)
+    src_cov = src_cov.reshape(-1, s_n, 3, 3)
+    tgt = tgt.reshape(-1, t_n, 3)
+    tgt_mask = tgt_mask.reshape(-1, t_n)
+    tgt_cov = tgt_cov.reshape(-1, t_n, 3, 3)
+    tgt_eff = _displaced(tgt, tgt_mask)
+    callbacks = _gicp_align_fused if _USE_FUSED_LINEARIZE else _unfused_callbacks
+    linearize, error = callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg)
 
     T0 = init_transform.reshape(-1, 4, 4).to(src.dtype)
     if cfg.optimizer == "lm":

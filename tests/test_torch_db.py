@@ -41,7 +41,8 @@ def built(small_config, request):
     want = jax_build_calibrated(map_descs, poses, sample, cfg.desc, table_slots=request.param)
     got = build_database_calibrated(
         interop.descriptors_from_numpy(map_descs, "cpu"), torch.from_numpy(poses),
-        interop.descriptors_from_numpy(sample, "cpu"), cfg.desc, table_slots=request.param,
+        interop.descriptors_from_numpy(sample, "cpu"), interop.config_from_reference(cfg).desc,
+        table_slots=request.param,
     )
     return cfg, want, got
 
@@ -68,7 +69,8 @@ def test_report_totals_and_scan_cap_match_reference(built):
     assert got_rep.suggested_bucket_cap == want_rep.suggested_bucket_cap
     np.testing.assert_array_equal(got_tot.numpy(), np.asarray(want_tot))
     for observed in (int(got_tot.max()), 0, 123_456_789):
-        assert fit_scan_slots(observed, cfg) == jax_fit_scan_slots(observed, cfg)
+        got_cfg = fit_scan_slots(observed, interop.config_from_reference(cfg))
+        assert got_cfg == interop.config_from_reference(jax_fit_scan_slots(observed, cfg))
 
 
 def test_load_database_reads_reference_file(built, tmp_path):

@@ -19,7 +19,7 @@ from sgtd_tpu.desc.triangles import build_descriptors as jax_build_descriptors
 from sgtd_tpu.graph.types import make_graph as jax_make_graph
 from sgtd_tpu_torch.desc.keys import probe_cells
 from sgtd_tpu_torch.desc.triangles import build_descriptors
-from sgtd_tpu_torch.interop import graph_from_numpy
+from sgtd_tpu_torch.interop import config_from_reference, graph_from_numpy
 
 torch.set_num_threads(1)
 
@@ -62,7 +62,8 @@ def test_build_descriptors_matches_reference(graphs, small_config, batching):
         want = jax.jit(jax.vmap(fn))(batch)
     else:
         want = _stack([fn(g) for g in graphs])
-    got = build_descriptors(graph_from_numpy(batch, "cpu"), cfg.desc, cfg.caps)
+    pcfg = config_from_reference(cfg)
+    got = build_descriptors(graph_from_numpy(batch, "cpu"), pcfg.desc, pcfg.caps)
     assert int(got.mask.sum()) > 1000
     _assert_descriptors_match(got, want)
 
@@ -74,7 +75,7 @@ def test_probe_cells_matches_reference(small_config):
     sides[50:60] = rng.uniform(-1.0, 0.4, (10, 3))  # below the first cell
     labels = rng.integers(-1, 14, (300, 3)).astype(np.int32)
     want = jax_probe_cells(jnp.asarray(sides), jnp.asarray(labels), small_config.desc)
-    got = probe_cells(torch.from_numpy(sides), torch.from_numpy(labels), small_config.desc)
+    got = probe_cells(torch.from_numpy(sides), torch.from_numpy(labels), config_from_reference(small_config).desc)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -90,7 +91,8 @@ def test_build_descriptors_edge_cases(small_config, case):
             rng.uniform(-15, 15, (6, 3)), rng.integers(3, 13, 6), np.eye(4), max_nodes=8
         )
     want = _stack([jax_build_descriptors(g, cfg.desc, cfg.caps)])
-    got = build_descriptors(graph_from_numpy(_stack([g]), "cpu"), cfg.desc, cfg.caps)
+    pcfg = config_from_reference(cfg)
+    got = build_descriptors(graph_from_numpy(_stack([g]), "cpu"), pcfg.desc, pcfg.caps)
     assert got.mask.shape == np.asarray(want.mask).shape
     _assert_descriptors_match(got, want)
     if case == "empty_graph":

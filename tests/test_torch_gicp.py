@@ -25,7 +25,8 @@ from sgtd_tpu.ops import linalg3 as jax_linalg3
 from sgtd_tpu.refine import gicp as jax_gicp
 from sgtd_tpu_torch.data import synthetic
 from sgtd_tpu_torch.geom import se3
-from sgtd_tpu_torch.interop import to_numpy
+from sgtd_tpu_torch.config import GicpConfig as PortGicpConfig
+from sgtd_tpu_torch.interop import config_from_reference, to_numpy
 from sgtd_tpu_torch.match.pipeline import rerank_pick
 from sgtd_tpu_torch.ops import linalg3
 from sgtd_tpu_torch.ops.voxel import load_query_cloud
@@ -35,6 +36,11 @@ torch.set_num_threads(1)
 
 T = torch.from_numpy
 POS_TOL_M, ROT_TOL_RAD, FIT_RTOL = 5e-3, 1e-3, 1e-3
+
+
+def P(gcfg):
+    """The port's GicpConfig of a reference one."""
+    return config_from_reference(gcfg, PortGicpConfig)
 
 
 def _rots(rng, n, scale=1.0):
@@ -156,7 +162,7 @@ def test_point_covariances_match_reference(pairs):
     _, _, tgt, tmask, _ = pairs
     want = np.asarray(jax.vmap(functools.partial(jax_gicp.point_covariances, cfg=GCFG))(
         jnp.asarray(tgt), jnp.asarray(tmask)))
-    got = gicp.point_covariances(T(tgt), T(tmask), GCFG).numpy()
+    got = gicp.point_covariances(T(tgt), T(tmask), P(GCFG)).numpy()
     err = np.abs(got - want).max(axis=(-2, -1))
     # See test_torch_refined: float32 Cardano near r = 1 on a few points.
     assert (err > 2e-4).mean() <= 1e-3 and err.max() <= 1e-2, np.sort(err)[-5:]
@@ -169,7 +175,7 @@ def test_gicp_align_matches_reference(pairs, optimizer):
     src, smask, tgt, tmask, init = pairs
     want = jax.jit(jax.vmap(functools.partial(jax_gicp.gicp_align, cfg=cfg)))(
         *map(jnp.asarray, (src, smask, tgt, tmask, init)))
-    got = to_numpy(gicp.gicp_align(*map(T, (src, smask, tgt, tmask, init)), cfg))
+    got = to_numpy(gicp.gicp_align(*map(T, (src, smask, tgt, tmask, init)), P(cfg)))
     _assert_gicp_close(got, want)
     # Real overlap: a third or more of each source finds surface.
     assert (got.inlier_frac > 0.3).all()
@@ -180,7 +186,7 @@ def test_gicp_align_correspondence_gate(pairs):
     src, smask, tgt, tmask, init = (a[:1] for a in pairs)
     want = jax.jit(functools.partial(jax_gicp.gicp_align, cfg=cfg))(
         *(jnp.asarray(a[0]) for a in (src, smask, tgt, tmask, init)))
-    got = to_numpy(gicp.gicp_align(*(T(a[0]) for a in (src, smask, tgt, tmask, init)), cfg))
+    got = to_numpy(gicp.gicp_align(*(T(a[0]) for a in (src, smask, tgt, tmask, init)), P(cfg)))
     assert got.transform.shape == (4, 4) and got.fitness.shape == ()
     _assert_gicp_close(got, want)
 
@@ -194,7 +200,7 @@ def test_gicp_rerank_matches_reference(pairs):
     inits = np.stack([init[0][None].repeat(3, 0), init[1][None].repeat(3, 0)])
     want = jax.jit(jax.vmap(functools.partial(jax_gicp.gicp_rerank, cfg=GCFG)))(
         *map(jnp.asarray, (src[:2], smask[:2], tgts, tmasks, inits)))
-    got = to_numpy(gicp.gicp_rerank(*map(T, (src[:2], smask[:2], tgts, tmasks, inits)), GCFG))
+    got = to_numpy(gicp.gicp_rerank(*map(T, (src[:2], smask[:2], tgts, tmasks, inits)), P(GCFG)))
     assert got.transform.shape == (2, 3, 4, 4) and got.fitness.shape == (2, 3)
     _assert_gicp_close(got, want)
 
@@ -218,7 +224,7 @@ def test_rerank_pick_matches_reference():
     want = [jax.tree_util.tree_map(np.asarray, jax_rerank_pick(
         jnp.asarray(fg[i]), jnp.asarray(fi[i]), jnp.asarray(refined[i]), jnp.asarray(init[i]),
         jnp.asarray(found[i]), gcfg)) for i in range(b)]
-    pick, use, _ = rerank_pick(T(fg), T(fi), T(refined), T(init), T(found), gcfg)
+    pick, use, _ = rerank_pick(T(fg), T(fi), T(refined), T(init), T(found), P(gcfg))
     np.testing.assert_array_equal(pick.numpy(), [w[0] for w in want])
     np.testing.assert_array_equal(use.numpy(), [w[1] for w in want])
     assert 0 < use.sum() < found.sum()  # the guard rejected some queries outright
@@ -231,7 +237,7 @@ def test_rerank_pick_scores_unverified_candidates():
     init = torch.eye(4).expand(1, 2, 4, 4)
     fitness_gated = torch.tensor([[1.0, 0.5]])
     inlier_frac = torch.tensor([[0.6, 0.9]])  # candidate 1: verify score -1
-    pick, use, _ = rerank_pick(fitness_gated, inlier_frac, init, init, torch.tensor([True]), GicpConfig())
+    pick, use, _ = rerank_pick(fitness_gated, inlier_frac, init, init, torch.tensor([True]), P(GicpConfig()))
     want = jax_rerank_pick(*(jnp.asarray(a[0].numpy()) for a in (fitness_gated, inlier_frac, init, init)),
                            jnp.asarray(True), GicpConfig())
     assert int(pick[0]) == int(want[0]) == 1 and bool(use[0])

@@ -25,6 +25,7 @@ from sgtd_tpu_torch.db.device_build import build_database_calibrated
 from sgtd_tpu_torch.desc.triangles import build_descriptors
 from sgtd_tpu_torch.eval.metrics import success_rate
 from sgtd_tpu_torch.graph.types import stack_graphs
+from sgtd_tpu_torch.interop import config_from_reference
 from sgtd_tpu_torch.match.pipeline import localize
 from sgtd_tpu_torch.match.search import TRUNC_SCAN
 
@@ -62,15 +63,16 @@ def results(small_config):
     )
     jcfg = fit_scan_slots(int(np.asarray(jtot).max()), tuned_config(cfg, jrep))
     want = [jax.tree_util.tree_map(np.asarray, jax_localize(jdb, g, jcfg)) for g in queries]
-    # Port: its own descriptors and DB, all queries in one batch.
+    # Port: its own config type, descriptors and DB, all queries in one batch.
+    pcfg = config_from_reference(cfg)
     mb, qb = stack_graphs(maps, "cpu"), stack_graphs(queries, "cpu")
     db, rep, tot = build_database_calibrated(
-        build_descriptors(mb, cfg.desc, cfg.caps), mb.pose,
-        build_descriptors(stack_graphs(queries[:4], "cpu"), cfg.desc, cfg.caps),
-        cfg.desc, table_slots=TABLE_SLOTS,
+        build_descriptors(mb, pcfg.desc, pcfg.caps), mb.pose,
+        build_descriptors(stack_graphs(queries[:4], "cpu"), pcfg.desc, pcfg.caps),
+        pcfg.desc, table_slots=TABLE_SLOTS,
     )
-    tcfg = fit_scan_slots(int(tot.max()), tuned_config(cfg, rep))
-    assert tcfg == jcfg
+    tcfg = fit_scan_slots(int(tot.max()), tuned_config(pcfg, rep))
+    assert tcfg == config_from_reference(jcfg) and type(tcfg) is type(pcfg)
     got = localize(db, qb, tcfg)
     return queries, tcfg, want, got
 
@@ -110,7 +112,7 @@ def test_localize_scores_and_poses_match_reference(results):
 
 def test_port_imports_no_jax():
     """The port runs where JAX is absent: importing it and localizing must
-    load no jax module and no sgtd_tpu module other than the config."""
+    load no jax module and no sgtd_tpu module at all."""
     code = """
 import sys
 import torch
@@ -130,8 +132,7 @@ md, qd = build_descriptors(mb, cfg.desc, cfg.caps), build_descriptors(qb, cfg.de
 db, rep, tot = build_database_calibrated(md, mb.pose, qd, cfg.desc, table_slots=1 << 20)
 res = localize(db, qb, fit_scan_slots(int(tot.max()), tuned_config(cfg, rep)))
 assert res.frames.shape == (2, 8)
-bad = sorted(m for m in sys.modules if m.split(".")[0] == "jax"
-             or (m.startswith("sgtd_tpu.") and m != "sgtd_tpu.config"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
 print("BAD", bad)
 """
     out = subprocess.run(

@@ -53,7 +53,8 @@ _CASES = {
 def test_candidate_search_matches_reference(world, case):
     cfg, db, qd, tdb, tq = world
     cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, **_CASES[case]))
-    got = candidate_search(tdb, tq, cfg.desc, cfg.search, cfg.caps)
+    pcfg = interop.config_from_reference(cfg)
+    got = candidate_search(tdb, tq, pcfg.desc, pcfg.search, pcfg.caps)
     for i, q in enumerate(qd):
         want = jax_candidate_search(db, q, cfg.desc, cfg.search, cfg.caps)
         for f in want._fields:
@@ -102,7 +103,7 @@ def test_verify_pairs_matches_reference(world):
         vdb = np.asarray(db.vertices[cand.pair_row])
         pv, cv = np.asarray(cand.pair_valid), np.asarray(cand.valid)
         want = jax_verify_pairs(*(jnp.asarray(a) for a in (vq, vdb, pv, cv)), cfg.search)
-        got = verify_pairs(*(torch.tensor(a) for a in (vq, vdb, pv, cv)), cfg.search)
+        got = verify_pairs(*(torch.tensor(a) for a in (vq, vdb, pv, cv)), interop.config_from_reference(cfg).search)
         np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
         np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
         # Transforms of accepted candidates; a rejected one (score -1, often
@@ -127,7 +128,8 @@ def test_fallback_paths_match_reference(world, path):
                          code_remap=db.code_remap[:0])
     else:  # scan budget above sel_max_scan_slots
         cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=cfg.caps.max_scan_slots - 1))
-    got = candidate_search(tdb, tq, cfg.desc, cfg.search, cfg.caps)
+    pcfg = interop.config_from_reference(cfg)
+    got = candidate_search(tdb, tq, pcfg.desc, pcfg.search, pcfg.caps)
     for i, q in enumerate(qd):
         want = jax_candidate_search(db, q, cfg.desc, cfg.search, cfg.caps)
         for f in want._fields:

@@ -37,7 +37,7 @@ from sgtd_tpu_torch.db.device_build import build_database_calibrated
 from sgtd_tpu_torch.desc.triangles import build_descriptors
 from sgtd_tpu_torch.eval.metrics import success_rate
 from sgtd_tpu_torch.graph.types import stack_graphs
-from sgtd_tpu_torch.interop import map_clouds_to_device, to_numpy
+from sgtd_tpu_torch.interop import config_from_reference, map_clouds_to_device, to_numpy
 from sgtd_tpu_torch.match.pipeline import localize_refined
 from sgtd_tpu_torch.match.search import TRUNC_SCAN
 from sgtd_tpu_torch.ops.voxel import load_query_cloud
@@ -95,14 +95,15 @@ def slice_results(small_config):
         for i, g in enumerate(queries)
     ]
 
-    # Port: its own DB and map covariances, all queries in one batch.
+    # Port: its own config type, DB and map covariances, all queries in one batch.
+    pcfg = config_from_reference(cfg)
     mb, qb = stack_graphs(maps, "cpu"), stack_graphs(queries, "cpu")
     db, rep, tot = build_database_calibrated(
-        build_descriptors(mb, cfg.desc, cfg.caps), mb.pose,
-        build_descriptors(qb, cfg.desc, cfg.caps), cfg.desc, table_slots=TABLE_SLOTS,
+        build_descriptors(mb, pcfg.desc, pcfg.caps), mb.pose,
+        build_descriptors(qb, pcfg.desc, pcfg.caps), pcfg.desc, table_slots=TABLE_SLOTS,
     )
-    tcfg = fit_scan_slots(int(tot.max()), tuned_config(cfg, rep))
-    assert tcfg == jcfg
+    tcfg = fit_scan_slots(int(tot.max()), tuned_config(pcfg, rep))
+    assert tcfg == config_from_reference(jcfg) and type(tcfg) is type(pcfg)
     clouds, masks, _ = map_clouds_to_device(mc, mm, None, "cpu", f_pad=db.frame_poses.shape[0])
     covs = point_covariances(clouds, masks, tcfg.gicp)
     got = localize_refined(
@@ -176,7 +177,7 @@ def test_map_tensors_must_carry_the_db_frame_count(slice_results, small_config):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         localize_refined(
             db, qb, clouds[:1], masks[:1], clouds, masks, None,
-            cfg.replace(gicp=GicpConfig(engine="vgicp")),
+            cfg.replace(gicp=config_from_reference(GicpConfig(engine="vgicp"), type(cfg.gicp))),
         )
 
 
@@ -203,7 +204,7 @@ def test_map_clouds_pad_to_the_db_frame_count():
 
 def test_refined_port_imports_no_jax():
     """Driving localize_refined (covariances, rerank) loads no jax module
-    and no sgtd_tpu module other than the config."""
+    and no sgtd_tpu module at all."""
     code = """
 import sys
 import numpy as np
@@ -235,8 +236,7 @@ clouds, masks, _ = map_clouds_to_device(mc, mm, None, "cpu", f_pad=db.frame_pose
 res = localize_refined(db, qb, torch.from_numpy(np.stack(qc)), torch.from_numpy(np.stack(qm)),
                        clouds, masks, point_covariances(clouds, masks, cfg.gicp), cfg, rerank_k=2)
 assert res.pose.shape == (2, 4, 4) and bool(torch.isfinite(res.pose).all())
-bad = sorted(m for m in sys.modules if m.split(".")[0] == "jax"
-             or (m.startswith("sgtd_tpu.") and m != "sgtd_tpu.config"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
 print("BAD", bad)
 """
     out = subprocess.run(

@@ -52,6 +52,8 @@ TABLE_SLOTS = 1 << 21
 # (metres, up to ~130 m from the origin, where a float32 ulp is 1.5e-5)
 # within 1e-5 relative + 1e-5 absolute of the reference's.
 POSE_TOL = dict(rtol=1e-5, atol=1e-5)
+# The port takes its own config type: P(cfg) of a reference config.
+P = interop.config_from_reference
 INT_FIELDS = ("found", "best_frame", "frames", "votes", "truncated", "num_descriptors")
 
 
@@ -176,14 +178,14 @@ def _path_inputs(world, path):
 def test_localize_matches_reference(world, path):
     cfg, jdb, tdb = _path_inputs(world, path)
     want = [jax_localize(jdb, g, cfg) for g in world["queries"]]
-    got = localize(tdb, world["tq_graphs"], cfg)
+    got = localize(tdb, world["tq_graphs"], P(cfg))
     _assert_result_matches(got, want)
     assert got.found.all() and not (got.truncated.numpy() & TRUNC_SCAN).any()
 
 
 def test_probe_ranges_match_reference(world):
     for jdb, tdb in ((world["jdb"], world["tdb"]), (_jax_no_table(world["jdb"]), _no_table(world["tdb"]))):
-        got = probe_ranges(tdb, world["tq"], world["cfg"].desc)
+        got = probe_ranges(tdb, world["tq"], P(world["cfg"]).desc)
         for i in range(len(world["queries"])):
             q = jax.tree_util.tree_map(lambda x: x[i], world["q_descs"])
             want = jax_probe_ranges(jdb, q, world["cfg"].desc)
@@ -200,8 +202,8 @@ def test_calibrate_scan_slots_matches_reference(world, small_config, table):
     if table == "bisection":
         jdb, tdb = _jax_no_table(jdb), _no_table(tdb)
     want = jax_calibrate_scan_slots(jdb, world["q_descs"], small_config)
-    got = calibrate_scan_slots(tdb, world["tq"], small_config)
-    assert got == want
+    got = calibrate_scan_slots(tdb, world["tq"], P(small_config))
+    assert got == P(want)
     assert got.caps.max_scan_slots < small_config.caps.max_scan_slots
 
 
@@ -211,14 +213,14 @@ def test_localize_exact_matches_reference(world):
     run."""
     cfg = world["cfg"]
     starved = cfg.replace(caps=dataclasses.replace(cfg.caps, max_scan_slots=64))
-    capped = localize(world["tdb"], world["tq_graphs"], starved)
+    capped = localize(world["tdb"], world["tq_graphs"], P(starved))
     assert (capped.truncated.numpy() & TRUNC_SCAN).all()
-    got = localize_exact(world["tdb"], world["tq_graphs"], starved)
+    got = localize_exact(world["tdb"], world["tq_graphs"], P(starved))
     want = [jax_localize_exact(world["jdb"], g, starved) for g in world["queries"]]
     _assert_result_matches(got, want)
     assert not got.truncated.any()
     cm = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=0))
-    uncapped = localize(world["tdb"], world["tq_graphs"], cm)
+    uncapped = localize(world["tdb"], world["tq_graphs"], P(cm))
     for f in ("frames", "votes", "scores", "found", "best_frame"):
         assert torch.equal(getattr(got, f), getattr(uncapped, f)), f
 
@@ -241,11 +243,11 @@ def test_append_database_matches_reference(world, table):
     assert jpart.has_direct_table and want_db.has_direct_table == (table == "direct_table")
 
     tpart, _ = build_database_on_device(
-        interop.descriptors_from_numpy(part, "cpu"), torch.from_numpy(poses[:k]), cfg.desc,
+        interop.descriptors_from_numpy(part, "cpu"), torch.from_numpy(poses[:k]), P(cfg).desc,
         table_slots=slots,
     )
     got_db, got_rep = append_database(
-        tpart, interop.descriptors_from_numpy(rest, "cpu"), torch.from_numpy(poses[k:]), cfg.desc
+        tpart, interop.descriptors_from_numpy(rest, "cpu"), torch.from_numpy(poses[k:]), P(cfg).desc
     )
     assert dataclasses.asdict(got_rep) == dataclasses.asdict(want_rep)
     got_np = interop.db_to_numpy(got_db)
@@ -255,11 +257,11 @@ def test_append_database_matches_reference(world, table):
         np.testing.assert_array_equal(got_np[f], w, err_msg=f)
 
     full, _ = build_database_on_device(
-        interop.descriptors_from_numpy(md, "cpu"), torch.from_numpy(poses), cfg.desc,
+        interop.descriptors_from_numpy(md, "cpu"), torch.from_numpy(poses), P(cfg).desc,
         table_slots=TABLE_SLOTS,
     )
-    a = localize(got_db, world["tq_graphs"], cfg)
-    b = localize(full, world["tq_graphs"], cfg)
+    a = localize(got_db, world["tq_graphs"], P(cfg))
+    b = localize(full, world["tq_graphs"], P(cfg))
     for f in INT_FIELDS + ("scores",):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
@@ -274,8 +276,8 @@ def test_wide_frame_db_equals_narrow(world):
     wide = interop.pad_frames(tdb, f_wide)
     rows = torch.arange(tdb.keys.shape[0], dtype=torch.int32)
     assert torch.equal(search._frame_of_rows(tdb, rows), search._frame_of_rows(wide, rows))
-    a = localize(tdb, world["tq_graphs"], cfg)
-    b = localize(wide, world["tq_graphs"], cfg)
+    a = localize(tdb, world["tq_graphs"], P(cfg))
+    b = localize(wide, world["tq_graphs"], P(cfg))
     assert torch.equal(a.found, b.found) and torch.equal(a.best_frame, b.best_frame)
     # C widens with f_pad (24 -> 50): compare the live, score-sorted prefix.
     live_a = a.votes >= cfg.search.min_votes
@@ -293,7 +295,7 @@ def test_vote_tally_follows_frame_axis(world, monkeypatch):
     for name in ("frame_votes", "frame_votes_wide"):
         fn = getattr(probe, name)
         monkeypatch.setattr(probe, name, lambda *a, _n=name, _f=fn: calls.append(_n) or _f(*a))
-    cfg, tdb = world["cfg"], world["tdb"]
+    cfg, tdb = P(world["cfg"]), world["tdb"]
     for f_pad in (2048, 2056):
         search.probe_and_hits(interop.pad_frames(tdb, f_pad), world["tq"], cfg.desc, cfg.search, cfg.caps)
     assert calls == ["frame_votes", "frame_votes_wide"]
@@ -303,7 +305,7 @@ def test_vote_tally_follows_frame_axis(world, monkeypatch):
 
 
 def test_build_descriptors_chunked_equals_unchunked(world):
-    cfg = world["cfg"]
+    cfg = P(world["cfg"])
     batch = stack_graphs(world["maps"], "cpu")
     want = build_descriptors(batch, cfg.desc, cfg.caps)
     got = build_descriptors_chunked(batch, cfg, chunk=5)
