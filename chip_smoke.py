@@ -1,6 +1,6 @@
 """Drive the PyTorch port's localization paths on one CUDA card, end to end.
 
-    python3 chip_smoke.py [--scale-frames N]
+    python3 chip_smoke.py [--scale-frames N] [--baseline TREE]
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -21,13 +21,28 @@ Phases (any failure ends the run with a non-zero exit):
    entry, H and g within rtol 2e-4 + atol 2e-2, y0 and the sum of squared
    distances within rtol 1e-4 (nvcc contracts the algebra into FMAs, the
    plain version does not), and two launches on the same inputs give the
-   same bits. B8 equal at (399,104, 2) x 106,496 rows and at
-   (9,775,363, 2) x 14,417,920. B1-B3, B6: median times of kernel and
-   plain version over 20 synchronized runs each; B4, B5, B7, B8:
-   CUDA-event times. Each kernel's time stands beside its bound on the
-   card (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   whichever is larger) and, where one PyTorch call computes the same
-   function, that call's time.
+   same bits. B5 also at the shapes a warp-level selection can get wrong
+   (``check_knn_edges``: k 1, 20, 32; T = k; T 33, 1,000, 1,025; N 1 and
+   100; one repeated point; 30% of a cloud masked; self queries; 70,000
+   problems), each launched twice for the same bits. B8 equal at
+   (399,104, 2) x 106,496 rows and at (9,775,363, 2) x 14,417,920, and on
+   each table at L 1, 3 and 4,099, with an index vector off its 8-byte
+   boundary, and at W 3. B1-B3, B6: median times of kernel and plain
+   version over 20 synchronized runs each; B4, B5, B7, B8: CUDA-event
+   times (B8 and ``index_select`` in turns). Each kernel's time stands
+   beside its bound on the card (bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger) and, where one
+   PyTorch call computes the same function, that call's time; B5's record
+   carries the map build's shape under ``map``, B8's the 14.4M-row scan
+   under ``scan``. Then the host cost of a call of each wrapper
+   (``host_us``: the host clock over 200 back-to-back calls on tiny
+   inputs, one synchronize at the end, least of 7 rounds), beside
+   ``index_select``'s and the two parts of B8's (output allocation,
+   launch). With ``--baseline TREE`` (another tree of the port, e.g. the
+   parent commit unpacked by ``git archive`` under ``build/``) the host
+   costs of both trees are taken in turns, a process a reading, and the
+   B5 and B8 kernels of both built libraries are timed in turns on the
+   same inputs (B8 on random rows and on runs of consecutive rows).
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
@@ -101,6 +116,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -287,6 +303,105 @@ def scatter_add_ms(hit, frame, f_pad: int) -> float:
     return event_ms(lambda: out.scatter_add_(-1, idx, val), 10, 3)
 
 
+def check_knn_edges(dev, rng) -> float:
+    """B5 against its plain version (the 1-ulp rule of check_nn_rows, and
+    the same bits from a second launch) where a warp-level selection can go
+    wrong: k 1, 20, 32; T = k; T no multiple of the warp or the tile; one
+    query and a hundred; a cloud of one repeated point; 30% of a cloud at
+    the masked coordinate; self queries (zero and negative distances); more
+    problems than a grid's y axis holds. Returns the largest distance gap."""
+    from sgtd_tpu_torch.ops import nn
+
+    cloud = lambda *shape: rng.uniform(-50, 50, shape + (3,)).astype(np.float32)
+    same = np.broadcast_to(cloud(2, 1), (2, 100, 3)).copy()
+    masked = cloud(3, 1025)
+    masked[rng.uniform(size=(3, 1025)) < 0.3] = 1e6
+    self_q = cloud(3, 1000)
+    cases = [(f"k {k}", cloud(3, 100), cloud(3, 1000), k) for k in (1, 20, 32)]
+    cases += [(f"T = k = {k}", cloud(3, 100), cloud(3, k), k) for k in (1, 20, 32)]
+    cases += [(f"T {t}", cloud(3, 100), cloud(3, t), 20) for t in (33, 1000, 1025)]
+    cases += [(f"N {n}", cloud(2, n), cloud(2, 300), 20) for n in (1, 100)]
+    cases += [("one repeated point", same, same, 20), ("30% masked, self", masked, masked, 20),
+              ("self", self_q, self_q, 20), ("self, k 32", self_q, self_q, 32),
+              ("70,000 problems", cloud(70000, 1), cloud(70000, 33), 20)]
+    worst = 0.0
+    for name, q, r, k in cases:
+        q, r = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+        got, want = nn.knn(q, r, k), nn.knn_plain(q, r, k)
+        n_rows, err = check_nn_rows(f"B5 knn edge [{name}]", q, r, got, want)
+        if not torch.equal(got, nn.knn(q, r, k)):
+            fail(f"B5 knn edge [{name}]: two launches on the same input differ in their bits")
+        if name == "one repeated point" and not torch.equal(
+                got, torch.arange(k, dtype=torch.int32, device=dev).expand_as(got)):
+            fail("B5 knn edge [one repeated point]: the answer must be 0..k-1")
+        worst = max(worst, err)
+        log(f"   B5 knn edge [{name}] {tuple(q.shape)} x {tuple(r.shape)} k {k}: "
+            f"{n_rows} rows differ (1-ulp rule), same bits twice")
+    return worst
+
+
+HOST_COST_CALLS, HOST_COST_ROUNDS = 200, 7
+
+
+def host_us(fn) -> float:
+    """Host-clock microseconds a call of ``fn``: HOST_COST_CALLS
+    back-to-back calls and one synchronize at the end, the least of
+    HOST_COST_ROUNDS such rounds after a warm-up. The host is shared and
+    its neighbours only ever add time (single rounds spread by tens of
+    percent), so the least round is the call's own cost."""
+    for _ in range(20):
+        fn()
+    rounds = []
+    for _ in range(HOST_COST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_COST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / HOST_COST_CALLS * 1e6)
+    return min(rounds)
+
+
+def host_costs(dev) -> dict:
+    """Host-clock microseconds a call (``host_us``) of each wrapper, B1-B8,
+    then of ``index_select``, on inputs so small that the device is never
+    the limit. It is the whole wrapper's host time: checks, allocations,
+    the ctypes call, and for B1, B2 and B6 the tensor operations around the
+    launch. The last entries split B8's: the allocation of its output and
+    the launch alone (entry lookup, raw stream, ctypes conversion, the
+    CUDA runtime's launch), where the tree has the launch helper."""
+    from sgtd_tpu_torch.ops import _build, expand, gicp, nn, probe, verify
+
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    hit, frame = torch.ones((1, 64), dtype=torch.bool, device=dev), i32(1, 64)
+    length, payload = i32(1, 4) + 1, i32(1, 4, 2)
+    rot, t_h, verts = torch.eye(3, device=dev).expand(1, 2, 3, 3).contiguous(), f32(1, 2, 3), f32(1, 4, 3, 3)
+    ones4 = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    pts = torch.arange(24, dtype=torch.float32, device=dev).reshape(1, 8, 3)
+    eye4, mask8 = torch.eye(4, device=dev)[None], torch.ones((1, 8), dtype=torch.bool, device=dev)
+    gicp_payload = gicp.build_gicp_payload(pts, mask8, torch.eye(3, device=dev).expand(1, 8, 3, 3))
+    cov6 = gicp.cov6(torch.eye(3, device=dev).expand(1, 8, 3, 3)).contiguous()
+    table, idx = i32(64, 2), i32(16)
+    calls = {
+        "frame_votes": lambda: probe.frame_votes(hit, frame, 8),
+        "expand_jobs": lambda: expand.expand_jobs(length, payload, 16),
+        "hypothesis_votes": lambda: verify.hypothesis_votes(rot, t_h, verts, verts, ones4, 3.0),
+        "nn1": lambda: nn.nn1(pts, pts),
+        "knn": lambda: nn.knn(pts, pts, 2),
+        "frame_votes_wide": lambda: probe.frame_votes_wide(hit, frame, 8),
+        "linearize_gicp": lambda: gicp.linearize_sums(eye4, pts, cov6, mask8, pts, gicp_payload),
+        "gather_rows": lambda: probe.gather_rows(table, idx),
+        "index_select": lambda: torch.index_select(table, 0, idx),
+    }
+    if hasattr(_build, "launch"):
+        out_rows = table.new_empty((16, 2))
+        calls["gather_rows: new_empty"] = lambda: table.new_empty((16, 2))
+        calls["gather_rows: launch"] = lambda: _build.launch(
+            "sgtd_gather_rows", table.device, table.data_ptr(), idx.data_ptr(), out_rows.data_ptr(), 16, 2)
+    return {name: host_us(fn) for name, fn in calls.items()}
+
+
 def check_kernels(dev, card: str):
     """Phase 2: each kernel against its plain version at the bench shapes."""
     from sgtd_tpu_torch.ops import expand, probe, verify
@@ -418,28 +533,33 @@ def check_kernels(dev, card: str):
 
     # B5 knn, k 20, self: the map covariances (200 keyframes x 4,096) and
     # the query covariances of one chunk (16 x 1,024), with masked points.
-    errs, times = [], []
-    for shape in ((NUM_MAP, CLOUD_PTS), (CHUNK, SRC_PTS)):
+    k, recs = 20, []
+    for shape in ((CHUNK, SRC_PTS), (NUM_MAP, CLOUD_PTS)):
         pts = rng.uniform(-50, 50, shape + (3,)).astype(np.float32)
         pts[:, 1000:1010] = pts[:, :10]
         pts[rng.uniform(size=shape) < 0.2] = 1e6
         pts = torch.from_numpy(pts).to(dev)
-        k = 20
         got = nn.knn(pts, pts, k)
         want = nn.knn_plain(pts, pts, k)
         n_rows, err = check_nn_rows(f"B5 knn {shape}", pts, pts, got, want)
-        ms = event_ms(lambda: nn.knn(pts, pts, k), 3 if shape[0] == NUM_MAP else 50)
+        if not torch.equal(got, nn.knn(pts, pts, k)):
+            fail(f"B5 knn {shape}: two launches on the same input differ in their bits")
+        ms = event_ms(lambda: nn.knn(pts, pts, k), 10 if shape[0] == NUM_MAP else 50)
         plain_ms = event_ms(lambda: nn.knn_plain(pts, pts, k), 1, 3)
-        log(f"B5 knn {shape} self, k {k}: {n_rows} rows differ (1-ulp rule), max |err| {err}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) [{card}]")
-        errs.append(err)
-        times.append((ms, plain_ms))
-    # The record carries the per-chunk shape (16 x 1,024); the map build's
-    # is logged above.
-    records.append(kernel_record(
-        "knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", max(errs), *times[1],
-        nbytes=4 * CHUNK * SRC_PTS * (3 + 3 + 20), flops=8 * CHUNK * SRC_PTS * SRC_PTS))
-    log_bound(records[-1])
+        log(f"B5 knn {shape} self, k {k}: {n_rows} rows differ (1-ulp rule), max |err| {err}, same bits "
+            f"twice; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) [{card}]")
+        # Operations: 8 per distance, as B4; the selection is not counted.
+        p, n = shape
+        recs.append(kernel_record(
+            "knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", err, ms, plain_ms,
+            nbytes=4 * p * n * (3 + 3 + k), flops=8 * p * n * n))
+        log_bound(recs[-1])
+    edge_err = check_knn_edges(dev, rng)
+    # The record carries the per-chunk shape (16 x 1,024) and, under "map",
+    # the map build's (200 x 4,096) with its own bound.
+    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], recs[1]["max_abs_err"], edge_err)
+    recs[0]["map"] = {key: recs[1][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    records.append(recs[0])
 
     # B6 frame_votes_wide: the 5,000-keyframe scan (8 x 1,802,240 slots)
     # at f_pad 5,000 and 20,000, and the global-memory branch at 65,544.
@@ -594,7 +714,8 @@ def check_fused_kernels(dev, card: str, rng):
     del args, moved
 
     # B8 gather_rows: the bench DB's packed2 (399,104 rows of 2 words) at
-    # one chunk's selected rows, and the 5,000-keyframe DB's at its scan.
+    # one chunk's selected rows, and the 5,000-keyframe DB's at its scan;
+    # kernel and index_select timed in turns.
     rec = None
     for m, l in ((399104, 106496), (9775363, SCALE_CHUNK * 1802240)):
         table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (m, 2), dtype=np.int64).astype(np.int32)).to(dev)
@@ -606,19 +727,112 @@ def check_fused_kernels(dev, card: str, rng):
             fail(f"B8 gather_rows ({m}, 2) x {l} differs from its plain version")
         del got, want
         reps = 50 if l < (1 << 20) else 10
-        ms = event_ms(lambda: probe.gather_rows(table, idx), reps)
+        ms, lib_ms = turns_ms(lambda: probe.gather_rows(table, idx),
+                              lambda: torch.index_select(table, 0, idx), reps)
         plain_ms = event_ms(lambda: probe.gather_rows_plain(table, idx), reps)
-        lib_ms = event_ms(lambda: torch.index_select(table, 0, idx), reps)
         log(f"B8 gather_rows ({m}, 2) x {l}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
+            f"index_select {lib_ms:.4f} ms (CUDA events, kernel and index_select in turns) [{card}]")
         # Bytes: the indices and the rows they name read once, the rows written once.
         this = kernel_record("gather_rows", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:178", 0.0, ms,
                              plain_ms, nbytes=l * (4 + 8 + 8), flops=0, library_ms=lib_ms)
         log_bound(this)
-        rec = rec or this  # the record carries the bench shape
+        if rec is None:
+            rec = this  # the record carries the bench shape
+        else:
+            rec["scan"] = {key: this[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        # The ragged tail of the rows-a-thread design, an index vector off
+        # a 16-byte boundary, and a table of another width.
+        for name, t, i in (("L 1", table, idx[:1]), ("L 3", table, idx[:3]), ("L 4,099", table, idx[:4099]),
+                           ("unaligned idx", table, idx[1:4100]),
+                           ("W 3", torch.cat([table[:1000], table[:1000, :1]], 1), idx[:4099] % 1000)):
+            if not torch.equal(probe.gather_rows(t, i), probe.gather_rows_plain(t, i)):
+                fail(f"B8 gather_rows edge [{name}] on the ({m}, 2) table differs from its plain version")
         del table, idx
+    log("   B8 gather_rows edges (L 1, 3 and 4,099, idx off a 16-byte boundary, W 3): equal on both tables")
     records.append(rec)
     return records
+
+
+def turns_ms(fn_a, fn_b, launches: int):
+    """CUDA-event ms a call of each, taken in turns (b, a, a, b): the median
+    of each one's two ``event_ms`` readings of three rounds."""
+    t_a, t_b = [], []
+    for fn, acc in ((fn_b, t_b), (fn_a, t_a), (fn_a, t_a), (fn_b, t_b)):
+        acc.append(event_ms(fn, launches, 3))
+    return statistics.median(t_a), statistics.median(t_b)
+
+
+def baseline_run(tree: str) -> dict:
+    """``host_costs`` of the port's tree unpacked at ``tree`` (this one's
+    when it is the script's own directory), measured in a process of its
+    own: {"host_us": ..., "lib": path of that tree's built library}."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-cost-of", tree],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"host costs of {tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def compare_baseline(dev, card: str, tree: str) -> None:
+    """With ``--baseline TREE`` (another tree of the port, e.g. the parent
+    commit unpacked by ``git archive`` under ``build/``): the wrappers'
+    host costs of both trees, each in its own process, in turns (baseline,
+    this, this, baseline); then the kernel bodies of B5 and B8 of both
+    built libraries, called straight through ctypes on the same inputs, in
+    turns, with equal outputs required."""
+    import ctypes
+
+    from sgtd_tpu_torch.ops import _build
+
+    here = str(_build.CSRC.parents[1])
+    runs = [baseline_run(t) for t in (tree, here, here, tree)]
+    for name in runs[0]["host_us"]:
+        old, new = (min(runs[i]["host_us"][name], runs[j]["host_us"][name]) for i, j in ((0, 3), (1, 2)))
+        log(f"   host cost in turns, {name}: baseline {old:.2f} us, this tree {new:.2f} us a call "
+            f"(readings {[round(r['host_us'][name], 2) for r in runs]})")
+
+    def bind(path):
+        lib = ctypes.CDLL(path)
+        for name in ("sgtd_knn", "sgtd_gather_rows"):
+            getattr(lib, name).argtypes = _build.SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        return lib
+
+    old, new = bind(runs[0]["lib"]), bind(str(_build.build()))
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(SEED + 1)
+    k = 20
+    for p, n in ((CHUNK, SRC_PTS), (NUM_MAP, CLOUD_PTS)):
+        pts = rng.uniform(-50, 50, (p, n, 3)).astype(np.float32)
+        pts[rng.uniform(size=(p, n)) < 0.2] = 1e6
+        pts = torch.from_numpy(pts).to(dev)
+        outs = [torch.empty((p, n, k), dtype=torch.int32, device=dev) for _ in range(2)]
+        run = lambda lib, o: lib.sgtd_knn(pts.data_ptr(), pts.data_ptr(), o.data_ptr(), p, n, n, k, stream())
+        if run(old, outs[0]) or run(new, outs[1]) or not torch.equal(*outs):
+            fail(f"baseline compare: B5 knn ({p}, {n}) differs between the two libraries")
+        new_ms, old_ms = turns_ms(lambda: run(new, outs[1]), lambda: run(old, outs[0]), 5 if p == NUM_MAP else 50)
+        log(f"   B5 knn ({p}, {n}) self, k {k}, kernel bodies in turns: baseline {old_ms:.4f} ms, "
+            f"this tree {new_ms:.4f} ms (CUDA events) [{card}]")
+    for m, l in ((399104, 106496), (9775363, SCALE_CHUNK * 1802240)):
+        table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (m, 2), dtype=np.int64).astype(np.int32)).to(dev)
+        random = torch.from_numpy(rng.integers(0, m, l, dtype=np.int32)).to(dev)
+        # Runs of 8 to 64 consecutive rows from random starts, as the probe
+        # stage reads a bucket at a time.
+        n_runs = l // 8 + 1
+        starts = torch.from_numpy(rng.integers(0, m - 64, n_runs)).to(dev)
+        lens = torch.from_numpy(rng.integers(8, 65, n_runs)).to(dev)
+        first = torch.cumsum(lens, 0) - lens
+        run_of = torch.repeat_interleave(torch.arange(n_runs, device=dev), lens)[:l]
+        runs = (starts[run_of] + torch.arange(l, device=dev) - first[run_of]).to(torch.int32)
+        outs = [torch.empty((l, 2), dtype=torch.int32, device=dev) for _ in range(2)]
+        for pattern, idx in (("random rows", random), ("runs of 8-64 rows", runs)):
+            run = lambda lib, o: lib.sgtd_gather_rows(table.data_ptr(), idx.data_ptr(), o.data_ptr(), l, 2, stream())
+            if run(old, outs[0]) or run(new, outs[1]) or not torch.equal(*outs):
+                fail(f"baseline compare: B8 gather_rows x {l} differs between the two libraries")
+            new_ms, old_ms = turns_ms(lambda: run(new, outs[1]), lambda: run(old, outs[0]), 20)
+            lib_ms = event_ms(lambda: torch.index_select(table, 0, idx), 20, 3)
+            log(f"   B8 gather_rows ({m}, 2) x {l}, {pattern}, kernel bodies in turns: baseline {old_ms:.4f} ms, "
+                f"this tree {new_ms:.4f} ms; index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
 
 
 def main_path(dev, card: str):
@@ -808,6 +1022,7 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     map_covs = point_covariances(map_clouds, map_masks, cfg.gicp)
     torch.cuda.synchronize()
     cov_s = time.perf_counter() - t0
+    map_knn_launches = read_counts()[4]
     results = [
         localize_refined(db, q, q_clouds[s], q_masks[s], map_clouds, map_masks, map_covs,
                          cfg, rerank_k=RERANK_K)
@@ -815,7 +1030,8 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     ]
     torch.cuda.synchronize()
     launches = read_counts()[:5]
-    log(f"refined path kernel launches (B1-B5): {launches}")
+    log(f"refined path kernel launches (B1-B5): {launches} (B5: {map_knn_launches} for the map "
+        f"covariances, {launches[4] - map_knn_launches} for the chunks' query covariances)")
     if min(launches) <= 0:
         fail(f"a kernel of the refined path was never launched: {launches}")
 
@@ -880,7 +1096,7 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     log(f"refined steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
         f"chunk {CHUNK}, rerank_k {RERANK_K}, synchronized per chunk) [{card}]")
     inputs = (db, chunks, sl, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg)
-    return launches, inputs, results, gts, split, statistics.median(scans_s)
+    return launches, map_knn_launches, inputs, results, gts, split, statistics.median(scans_s)
 
 
 def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scans_s) -> int:
@@ -1326,13 +1542,24 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale-frames", type=int, default=5000,
                         help="keyframes of phase 5's large map (default 5000)")
+    parser.add_argument("--baseline", metavar="TREE",
+                        help="another tree of the port (e.g. the parent commit unpacked under build/): "
+                             "phase 2 also times its wrappers and its B5 and B8 against this tree's, in turns")
+    parser.add_argument("--host-cost-of", metavar="TREE",
+                        help="only measure the wrappers' host costs of the port's tree at TREE and print "
+                             "them as one JSON line (what --baseline runs, a process a reading)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a card")
+    if args.host_cost_of:
+        sys.path.insert(0, os.path.abspath(args.host_cost_of))
     from sgtd_tpu_torch.ops import _build
     from sgtd_tpu_torch.utils import disable_tf32
 
     dev = torch.device("cuda", 0)
+    if args.host_cost_of:
+        print(json.dumps({"lib": str(_build.build()), "host_us": host_costs(dev)}), flush=True)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1350,8 +1577,17 @@ def main() -> None:
     log("ptxas: " + " | ".join(ptxas_usage(path.with_suffix(".log").read_text())))
 
     records = check_kernels(dev, card)
+    costs = host_costs(dev)
+    for rec in records:
+        rec["host_us"] = costs[rec["name"]]
+    records[7]["library_host_us"] = costs["index_select"]
+    log(f"host cost of a call, us (host clock over {HOST_COST_CALLS} back-to-back calls on tiny inputs, one "
+        f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()) + f" [{card}]")
+    if args.baseline:
+        compare_baseline(dev, card, args.baseline)
     b8_launches, ctx = main_path(dev, card)
-    launches, *refined = refined_path(dev, card, *ctx)
+    launches, map_knn_launches, *refined = refined_path(dev, card, *ctx)
     del ctx
     b6_launches = large_map(dev, card, args.scale_frames)
     b7_launches = fused_path(dev, card, *refined)
@@ -1365,6 +1601,7 @@ def main() -> None:
     launches += [b6_launches, b7_launches, b8_launches]
     for rec, n in zip(records, launches):
         rec["launches"] = n
+    records[4]["map"]["launches"] = map_knn_launches
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:
         fail(f"modules of JAX or of the JAX package were loaded: {loaded}")

@@ -16,22 +16,52 @@
 //   nn1: idx[p, n] = the lowest index attaining min_t d(q[p, n], r[p, t]),
 //        sqd[p, n] = that minimum.
 //   knn: idx[p, n, :k] = the k smallest d in ascending order, ties to the
-//        lower index (a stable ascending sort truncated to k), k <= 32.
+//        lower index (a stable ascending sort truncated to k),
+//        1 <= k <= 32, k <= T.
 // Masked points arrive displaced to a far coordinate by the caller; the
 // kernels do not special-case them.
 //
 // Bound on this card: arithmetic, not bytes. At the rerank's shapes nn1
-// evaluates 64 x 1,024 x 4,096 = 268M distances (about 7 flops each) from
+// evaluates 64 x 1,024 x 4,096 = 268M distances (about 8 flops each) from
 // 1 MB of points; the map covariances' knn evaluates 200 x 4,096^2 = 3.4G.
-// Design (simple first): one thread per query point, one block per
-// (problem, 128-query tile); the problem's reference points stream through
-// shared memory in tiles of 1,024 (x, y, z, |r|^2) float4s (16 KB), each
-// computing its |r|^2 once; every thread of a warp reads the same float4
-// (a broadcast, no bank conflicts). Scanning the references in ascending
-// index with a strict < keeps the lowest index on ties: nn1 keeps a
-// running minimum; knn keeps a sorted list of its k best (d, idx) in
-// registers (fully unrolled over 32 slots) and inserts behind equal
-// distances.
+// The tensor cores cannot take the cross term: the distance is this fixed
+// chain of float32 FMAs, bit for bit.
+//
+// nn1 (simple first): one thread per query point, one block per (problem,
+// 128-query tile); the problem's reference points stream through shared
+// memory in tiles of 1,024 (x, y, z, |r|^2) float4s (16 KB), each computing
+// its |r|^2 once; every thread of a warp reads the same float4 (a
+// broadcast, no bank conflicts). Scanning the references in ascending
+// index with a strict < keeps the lowest index on ties.
+//
+// knn: what bounds it is the selection, not the distances the bound
+// counts. A query meets about k (1 + ln(T / k)) references that enter its
+// k best (126 of 4,096 at k 20), and with a thread a query and a sorted
+// list in its registers a whole warp walked that list whenever one of its
+// 32 lanes inserted: at almost every reference. Design: a warp a query
+// (four queries a warp, so that one shared-memory read feeds four
+// distances). Each query's best 32 lie sorted across the warp, one
+// (distance, index) a lane, the k-th on lane k - 1 and broadcast as the
+// query's threshold. A step gives each lane one reference of the tile
+// (lane l reads float4 j0 + l: consecutive, conflict-free); a lane's test
+// is one compare against the threshold, as cheap as nn1's running minimum,
+// and a ballot collects the lanes that pass. Only those are inserted, one
+// at a time in ascending lane, each by all lanes at once: a broadcast of
+// its distance, two shfl_up that move the tail of the list down a lane,
+// and a broadcast of the new threshold. Steps ascend and lanes ascend, so
+// candidates arrive in ascending index; a strict < at the test and an
+// insert behind equal distances give the stable order (ties to the lower
+// index) from float compares alone, -0.0 equal to +0.0 as floats are. The
+// tie rule needs no packed (distance, index) key. Blocks of 8 warps (32
+// queries) over a one-dimensional grid of problems x query tiles: the
+// rerank's chunk of 16 x 1,024 queries is 512 blocks, four on every SM,
+// and the problem count has no 65,535 limit.
+// Tried and lost (same card, in turns): 2 and 8 queries a warp (8 spills
+// past 64 registers and halves the blocks a SM holds); 4 and 16 warps a
+// block (within 3% either way); all four ballots taken before any insert;
+// the threshold broadcast once a step instead of once an insert (more
+// inserts early in the scan than shuffles saved). What remains is the
+// inserts' instruction count, some 20 a candidate beside 10 a distance.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -42,7 +72,13 @@ namespace {
 
 using namespace sgtd;  // kThreads, kTile, sq_norm, sq_dist, load_tile, nearest
 
-constexpr int kMaxK = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
+// knn: warps a block, queries a warp, and so queries a block (the wrapper's
+// KNN_QUERIES_PER_BLOCK).
+constexpr int kKnnWarps = 8;
+constexpr int kKnnQueries = 4;
+constexpr int kKnnThreads = 32 * kKnnWarps;
+constexpr int kKnnBlockQueries = kKnnWarps * kKnnQueries;
 
 // Query point n of the problem with |q|^2 in .w (zeros past the end).
 __device__ __forceinline__ float4 load_query(const float* __restrict__ query,
@@ -77,61 +113,73 @@ __global__ void nn1_kernel(const float* __restrict__ query,
   }
 }
 
-__global__ void knn_kernel(const float* __restrict__ query,
-                           const float* __restrict__ ref,
-                           int32_t* __restrict__ out_idx, int N, int T,
-                           int k) {
+// One list entry a lane: after the call the warp's 32 (ld, li), ascending by
+// lane, hold the candidate (cd, ci) behind every entry with ld <= cd; the
+// entries behind it have moved down one lane and the last has dropped out.
+__device__ __forceinline__ void knn_insert(float& ld, int& li, float cd, int ci,
+                                           int lane) {
+  const float ud = __shfl_up_sync(kFullWarp, ld, 1);
+  const int ui = __shfl_up_sync(kFullWarp, li, 1);
+  if (ld > cd) {
+    const bool here = lane == 0 || ud <= cd;
+    ld = here ? cd : ud;
+    li = here ? ci : ui;
+  }
+}
+
+__global__ void __launch_bounds__(kKnnThreads, 4)
+    knn_kernel(const float* __restrict__ query, const float* __restrict__ ref,
+               int32_t* __restrict__ out_idx, int N, int T, int k, int tiles) {
   __shared__ float4 tile[kTile];
-  const int64_t prob = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t row = prob * N + n;
-  const float4 q = load_query(query, row, n < N);
+  const int lane = threadIdx.x & 31;
+  const int64_t prob = blockIdx.x / tiles;
+  const int n0 = (blockIdx.x - prob * tiles) * kKnnBlockQueries +
+                 (threadIdx.x >> 5) * kKnnQueries;
   const float* r = ref + prob * 3 * static_cast<int64_t>(T);
 
   const float inf = __int_as_float(0x7f800000);
-  float bd[kMaxK];
-  int bi[kMaxK];
+  float4 q[kKnnQueries];
+  float ld[kKnnQueries];   // this lane's entry of each query's sorted list
+  int li[kKnnQueries];
+  float thr[kKnnQueries];  // the k-th smallest so far: lane k - 1's ld
 #pragma unroll
-  for (int s = 0; s < kMaxK; ++s) {
-    bd[s] = inf;
-    bi[s] = 0;
+  for (int c = 0; c < kKnnQueries; ++c) {
+    q[c] = load_query(query, prob * N + n0 + c, n0 + c < N);
+    ld[c] = inf;
+    li[c] = 0;
+    thr[c] = inf;
   }
-  float worst = inf;  // bd[k - 1]
+
   for (int base = 0; base < T; base += kTile) {
     const int len = min(kTile, T - base);
     __syncthreads();
     load_tile(r, base, len, tile);
     __syncthreads();
-    for (int j = 0; j < len; ++j) {
-      const float d = sq_dist(q, tile[j]);
-      if (d < worst) {
-        // Carry (d, idx) down the sorted list: it settles behind every
-        // equal distance (strict <), and each later entry moves one slot.
-        float cd = d;
-        int ci = base + j;
-        bool placed = false;
+    for (int j0 = 0; j0 < len; j0 += 32) {
+      const bool live = j0 + lane < len;
+      const float4 p = tile[live ? j0 + lane : 0];
 #pragma unroll
-        for (int s = 0; s < kMaxK; ++s) {
-          if (s < k && (placed || cd < bd[s])) {
-            const float td = bd[s];
-            const int ti = bi[s];
-            bd[s] = cd;
-            bi[s] = ci;
-            cd = td;
-            ci = ti;
-            placed = true;
+      for (int c = 0; c < kKnnQueries; ++c) {
+        const float d = live ? sq_dist(q[c], p) : inf;
+        // Lanes in ascending order, so candidates arrive in ascending index
+        // and a strict < leaves equal distances to the lower index.
+        unsigned hits = __ballot_sync(kFullWarp, d < thr[c]);
+        while (hits) {
+          const int src = __ffs(hits) - 1;
+          hits &= hits - 1;
+          const float cd = __shfl_sync(kFullWarp, d, src);
+          if (cd < thr[c]) {  // the same on every lane
+            knn_insert(ld[c], li[c], cd, base + j0 + src, lane);
+            thr[c] = __shfl_sync(kFullWarp, ld[c], k - 1);
           }
-          if (s == k - 1) worst = bd[s];
         }
       }
     }
   }
-  if (n < N) {
-    int32_t* out = out_idx + row * k;
 #pragma unroll
-    for (int s = 0; s < kMaxK; ++s)
-      if (s < k) out[s] = bi[s];
-  }
+  for (int c = 0; c < kKnnQueries; ++c)
+    if (n0 + c < N && lane < k)
+      out_idx[(prob * N + n0 + c) * k + lane] = li[c];
 }
 
 dim3 grid_of(int P, int N) { return dim3((N + kThreads - 1) / kThreads, P); }
@@ -152,14 +200,15 @@ extern "C" int sgtd_nn1(const void* query, const void* ref, void* idx,
 }
 
 // query (P, N, 3), ref (P, T, 3) float32 -> idx (P, N, k) int32.
-// P <= 65535, 1 <= k <= 32, T >= k.
+// 1 <= k <= 32, T >= k, P x ceil(N / 32) < 2^31.
 extern "C" int sgtd_knn(const void* query, const void* ref, void* idx, int P,
                         int N, int T, int k, void* stream) {
   if (P > 0 && N > 0) {
-    knn_kernel<<<grid_of(P, N), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+    const int tiles = (N + kKnnBlockQueries - 1) / kKnnBlockQueries;
+    const unsigned blocks = static_cast<unsigned>(static_cast<int64_t>(P) * tiles);
+    knn_kernel<<<blocks, kKnnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(ref),
-        static_cast<int32_t*>(idx), N, T, k);
+        static_cast<int32_t*>(idx), N, T, k, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

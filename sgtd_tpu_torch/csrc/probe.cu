@@ -141,20 +141,62 @@ extern "C" int sgtd_frame_votes_wide(const void* hit, const void* frame,
 // a lowering experiment for the probe stage's row gathers, which nothing in
 // the package calls). Bound on this card: bytes, L x W x 4 written and as
 // many read (the rows of idx; the table itself is touched only there), plus
-// 4 L of indices. Design: a pure indexed copy, one thread per output row
-// when W = 2 (the DB's packed2 words: one 64-bit load and store), else one
-// thread per output word. Indices must lie in [0, M): the caller's duty, as
+// 4 L of indices. What the card really moves is more: device memory
+// answers a random 8-byte read with a whole sector (32 bytes; 64 where the
+// memory fetches sector pairs), so at W = 2 a row of a table that does not
+// fit the 50 MB L2 costs 32 to 64 + 4 + 8 bytes: 14.4M random rows of a 78
+// MB table move 0.63 to 1.1 GB (0.19 to 0.33 ms) against the bound's 288 MB
+// (0.086 ms). The kernel cannot undo that; what it can do is keep the L2
+// for the table and make full-width accesses where rows do sit together
+// (the probe stage reads runs of consecutive rows, a bucket at a time). At
+// small L the call is the host's launch time, not the kernel's.
+//
+// Design, W = 2 (the DB's packed2 words): a thread copies two rows. It
+// reads its two indices as one 8-byte load, starts both 8-byte table reads
+// before the store, and writes the 16 contiguous output bytes as one
+// store, so a warp's store is 512 contiguous bytes of whole sectors.
+// Indices and output stream once through the card (__ldcs, __stcs: evict
+// first) so that they do not push table lines out of the L2; the table
+// goes through the read-only path (__ldg). The thread behind the last pair
+// copies the odd row; where idx is off an 8-byte or out off a 16-byte
+// boundary, every row takes a thread of its own. Other W: a word a thread,
+// with the same hints.
+// Tried and lost: four rows a thread with a 16-byte index load and two
+// 16-byte stores (each store instruction of a warp then half-fills 32
+// sectors: slower than a row a thread on random rows of an L2-resident
+// table, no faster elsewhere); four rows a thread strided by the block,
+// and two pairs a thread (both level with a pair a thread at twice the
+// registers); a row a thread, with or without the hints (level on random
+// rows, slower on sorted rows and on runs). On random rows of the large
+// table every variant and index_select land within 2% of each other: the
+// memory system's floor. Indices must lie in [0, M): the caller's duty, as
 // in the reference.
 
 namespace {
 
 constexpr int kGatherThreads = 256;
 
+// A 2-word table, a row a thread: for idx or out off its boundary.
+__global__ void gather_rows2_unaligned_kernel(const int2* __restrict__ table,
+                                              const int32_t* __restrict__ idx,
+                                              int2* __restrict__ out, int64_t L) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < L) __stcs(out + i, __ldg(table + __ldcs(idx + i)));
+}
+
+// A 2-word table, two rows a thread; idx 8-byte and out 16-byte aligned.
 __global__ void gather_rows2_kernel(const int2* __restrict__ table,
                                     const int32_t* __restrict__ idx,
                                     int2* __restrict__ out, int64_t L) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < L) out[i] = table[idx[i]];
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (2 * g + 1 < L) {
+    const int2 i = __ldcs(reinterpret_cast<const int2*>(idx) + g);
+    const int2 a = __ldg(table + i.x);
+    const int2 b = __ldg(table + i.y);
+    __stcs(reinterpret_cast<int4*>(out) + g, make_int4(a.x, a.y, b.x, b.y));
+  } else if (2 * g < L) {
+    __stcs(out + 2 * g, __ldg(table + __ldcs(idx + 2 * g)));
+  }
 }
 
 __global__ void gather_rows_kernel(const int32_t* __restrict__ table,
@@ -164,8 +206,12 @@ __global__ void gather_rows_kernel(const int32_t* __restrict__ table,
   const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (o < L * W) {
     const int64_t i = o / W;
-    out[o] = table[static_cast<int64_t>(idx[i]) * W + (o - i * W)];
+    __stcs(out + o, __ldg(table + static_cast<int64_t>(__ldcs(idx + i)) * W + (o - i * W)));
   }
+}
+
+unsigned gather_blocks(int64_t threads) {
+  return static_cast<unsigned>((threads + kGatherThreads - 1) / kGatherThreads);
 }
 
 }  // namespace
@@ -177,16 +223,16 @@ extern "C" int sgtd_gather_rows(const void* table, const void* idx, void* out,
   if (L > 0 && W > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     if (W == 2) {
-      const unsigned blocks =
-          static_cast<unsigned>((L + kGatherThreads - 1) / kGatherThreads);
-      gather_rows2_kernel<<<blocks, kGatherThreads, 0, s>>>(
+      const bool aligned = reinterpret_cast<uintptr_t>(idx) % 8 == 0 &&
+                           reinterpret_cast<uintptr_t>(out) % 16 == 0;
+      auto kernel = aligned ? gather_rows2_kernel : gather_rows2_unaligned_kernel;
+      const int64_t threads = aligned ? (L + 1) / 2 : L;
+      kernel<<<gather_blocks(threads), kGatherThreads, 0, s>>>(
           static_cast<const int2*>(table), static_cast<const int32_t*>(idx),
           static_cast<int2*>(out), L);
     } else {
       const int64_t words = static_cast<int64_t>(L) * W;
-      const unsigned blocks =
-          static_cast<unsigned>((words + kGatherThreads - 1) / kGatherThreads);
-      gather_rows_kernel<<<blocks, kGatherThreads, 0, s>>>(
+      gather_rows_kernel<<<gather_blocks(words), kGatherThreads, 0, s>>>(
           static_cast<const int32_t*>(table), static_cast<const int32_t*>(idx),
           static_cast<int32_t*>(out), L, W);
     }

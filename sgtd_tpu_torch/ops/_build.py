@@ -10,6 +10,18 @@ and flags, so an edited source rebuilds and an unchanged one is reused.
 
 Every entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches.
+
+:func:`launch` is the one place a wrapper goes through to start a kernel,
+so what a launch costs the host is written once: the entry points are
+bound once with their ``argtypes`` (:func:`entry_points`), the current
+stream is read as a raw handle (no ``torch.cuda.Stream`` object is built),
+and the return code is checked there. A wrapper keeps its own checks of
+device, type, shape and alignment, allocates its outputs anew on every
+call from an input (``x.new_empty``: cheaper on the host than
+``torch.empty(..., device=...)``), calls ``.contiguous()`` on its inputs
+(which hands back the tensor itself where it already is contiguous, for
+less than a Python-side ``is_contiguous()`` test costs), and adds one to
+its launch counter after :func:`launch` returns.
 """
 
 from __future__ import annotations
@@ -22,6 +34,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
@@ -131,7 +145,22 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise when a kernel entry point reports a CUDA error."""
+@functools.cache
+def entry_points() -> dict:
+    """Entry point name -> bound C function, for every name in SIGNATURES."""
+    lib = library()
+    return {name: getattr(lib, name) for name in SIGNATURES}
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` with ``args`` and, last, the current stream
+    of ``device`` (a CUDA device with an index, as a tensor's is); raise
+    where it reports a CUDA error.
+
+    ``torch._C._cuda_getCurrentRawStream`` returns the stream's handle as
+    an int without building a ``torch.cuda.Stream`` (Triton's launcher
+    reads the stream the same way). CUDA builds of torch have it (2.11 was
+    checked); CPU-only builds do not, and never come here."""
+    rc = entry_points()[name](*args, torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")

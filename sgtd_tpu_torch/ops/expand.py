@@ -62,12 +62,8 @@ def _expand_jobs_cuda(length: torch.Tensor, payload: torch.Tensor, l_max: int) -
     b, nj, c = payload.shape
     offsets = job_offsets(length).contiguous()
     payload = payload.contiguous()
-    out = torch.empty((b, c, l_max), dtype=torch.int32, device=length.device)
-    lib = _build.library()
-    rc = lib.sgtd_expand_jobs(
-        offsets.data_ptr(), payload.data_ptr(), out.data_ptr(), b, nj, c, l_max,
-        torch.cuda.current_stream(length.device).cuda_stream,
-    )
-    _build.check(rc, "sgtd_expand_jobs")
+    out = payload.new_empty((b, c, l_max))
+    _build.launch("sgtd_expand_jobs", length.device, offsets.data_ptr(), payload.data_ptr(),
+                  out.data_ptr(), b, nj, c, l_max)
     LAUNCHES += 1
     return out

@@ -203,16 +203,16 @@ def _linearize_cuda(T, src, src_cov6, src_mask, tgt_eff, payload, gate):
     T, src, src_cov6, src_mask, tgt_eff, payload = (x.contiguous() for x in tensors.values())
     nblk = -(-s // THREADS)
     dev = T.device
-    partial = torch.empty((p, nblk, PARTIAL), dtype=torch.float32, device=dev)
-    sums = torch.empty((p, ROW), dtype=torch.float32, device=dev)
-    aux = torch.empty((p, s, AUX), dtype=torch.float32, device=dev)
-    if payload.data_ptr() % 16 or aux.data_ptr() % 16:
+    partial = T.new_empty((p, nblk, PARTIAL))
+    sums = T.new_empty((p, ROW))
+    aux = T.new_empty((p, s, AUX))
+    payload_ptr, aux_ptr = payload.data_ptr(), aux.data_ptr()
+    if payload_ptr % 16 or aux_ptr % 16:
         raise ValueError("linearize_gicp: payload and aux must be 16-byte aligned")
-    rc = _build.library().sgtd_linearize_gicp(
-        T.data_ptr(), src.data_ptr(), src_cov6.data_ptr(), src_mask.data_ptr(),
-        tgt_eff.data_ptr(), payload.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        aux.data_ptr(), p, s, t, _gate2(gate), torch.cuda.current_stream(dev).cuda_stream,
+    _build.launch(
+        "sgtd_linearize_gicp", dev, T.data_ptr(), src.data_ptr(), src_cov6.data_ptr(),
+        src_mask.data_ptr(), tgt_eff.data_ptr(), payload_ptr, partial.data_ptr(),
+        sums.data_ptr(), aux_ptr, p, s, t, _gate2(gate),
     )
-    _build.check(rc, "sgtd_linearize_gicp")
     LINEARIZE_LAUNCHES += 1
     return sums, aux

@@ -24,8 +24,10 @@ from sgtd_tpu_torch.ops import _build
 NN1_LAUNCHES = 0
 KNN_LAUNCHES = 0
 
-MAX_K = 32  # the knn kernel's register list
-MAX_PROBLEMS = 65535  # grid.y of both kernels
+MAX_K = 32  # the knn kernel's list: one entry a lane of a warp
+MAX_PROBLEMS = 65535  # grid.y of the nn1 kernel
+KNN_QUERIES_PER_BLOCK = 32  # csrc/nn.cu: kKnnWarps x kKnnQueries
+MAX_KNN_BLOCKS = (1 << 31) - 1  # grid.x of the knn kernel, problems x query tiles
 # Distances per block of the plain versions: a few float64 (rows, T)
 # temporaries of 2^24 entries (128 MB each) bound their memory.
 _PLAIN_BLOCK = 1 << 24
@@ -138,8 +140,6 @@ def _check_cuda(query: torch.Tensor, ref: torch.Tensor, name: str):
     if query.dtype != torch.float32 or ref.dtype != torch.float32:
         raise TypeError(f"{name}: float32 points, got {query.dtype}/{ref.dtype}")
     batch, q, r = _flat(query, ref, name)
-    if q.shape[0] > MAX_PROBLEMS:
-        raise ValueError(f"{name}: {q.shape[0]} problems exceed {MAX_PROBLEMS}")
     return batch, q.contiguous(), r.contiguous()
 
 
@@ -147,13 +147,11 @@ def _nn1_cuda(query: torch.Tensor, ref: torch.Tensor):
     global NN1_LAUNCHES
     batch, q, r = _check_cuda(query, ref, "nn1")
     p, n, t = q.shape[0], q.shape[1], r.shape[1]
-    idx = torch.empty((p, n), dtype=torch.int32, device=q.device)
-    sqd = torch.empty((p, n), dtype=torch.float32, device=q.device)
-    rc = _build.library().sgtd_nn1(
-        q.data_ptr(), r.data_ptr(), idx.data_ptr(), sqd.data_ptr(), p, n, t,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(rc, "sgtd_nn1")
+    if p > MAX_PROBLEMS:
+        raise ValueError(f"nn1: {p} problems exceed {MAX_PROBLEMS}")
+    idx = q.new_empty((p, n), dtype=torch.int32)
+    sqd = q.new_empty((p, n))
+    _build.launch("sgtd_nn1", q.device, q.data_ptr(), r.data_ptr(), idx.data_ptr(), sqd.data_ptr(), p, n, t)
     NN1_LAUNCHES += 1
     return idx.reshape(batch + (n,)), sqd.reshape(batch + (n,))
 
@@ -165,11 +163,9 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
     _check_k(k, t)
     if k > MAX_K:
         raise ValueError(f"knn: k={k} exceeds the kernel's {MAX_K}")
-    idx = torch.empty((p, n, k), dtype=torch.int32, device=q.device)
-    rc = _build.library().sgtd_knn(
-        q.data_ptr(), r.data_ptr(), idx.data_ptr(), p, n, t, k,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(rc, "sgtd_knn")
+    if p * -(-n // KNN_QUERIES_PER_BLOCK) > MAX_KNN_BLOCKS:
+        raise ValueError(f"knn: {p} problems of {n} queries exceed the kernel's grid")
+    idx = q.new_empty((p, n, k), dtype=torch.int32)
+    _build.launch("sgtd_knn", q.device, q.data_ptr(), r.data_ptr(), idx.data_ptr(), p, n, t, k)
     KNN_LAUNCHES += 1
     return idx.reshape(batch + (n, k))

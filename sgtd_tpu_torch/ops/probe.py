@@ -71,12 +71,8 @@ def _launch(entry: str, hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> t
         raise ValueError(f"{entry}: (B, L) inputs, got {tuple(hit.shape)}/{tuple(frame.shape)}")
     hit, frame = hit.contiguous(), frame.contiguous()
     b, l = hit.shape
-    counts = torch.zeros((b, f_pad), dtype=torch.int32, device=hit.device)
-    rc = getattr(_build.library(), entry)(
-        hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad,
-        torch.cuda.current_stream(hit.device).cuda_stream,
-    )
-    _build.check(rc, entry)
+    counts = frame.new_zeros((b, f_pad))
+    _build.launch(entry, hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
     return counts.to(torch.float32)
 
 
@@ -93,23 +89,21 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     calls it (none of the reference calls its TPU counterpart, a lowering
     experiment for the probe stage's row gathers)."""
     global GATHER_LAUNCHES
-    if table.device.type == "cpu":
+    dev = table.device
+    if dev.type == "cpu":
         return gather_rows_plain(table, idx)
-    if table.device.type != "cuda" or idx.device != table.device:
-        raise ValueError(f"gather_rows: CUDA tensors required, got {table.device}/{idx.device}")
+    if dev.type != "cuda" or idx.device != dev:
+        raise ValueError(f"gather_rows: CUDA tensors required, got {dev}/{idx.device}")
     if table.dtype != torch.int32 or idx.dtype != torch.int32:
         raise TypeError(f"gather_rows: int32 table and idx, got {table.dtype}/{idx.dtype}")
     if table.dim() != 2 or idx.dim() != 1 or table.shape[1] < 1:
         raise ValueError(f"gather_rows: (M, W) table and (L,) idx, got {tuple(table.shape)}/{tuple(idx.shape)}")
     table, idx = table.contiguous(), idx.contiguous()
     l, w = idx.shape[0], table.shape[1]
-    out = torch.empty((l, w), dtype=torch.int32, device=table.device)
-    if w == 2 and (table.data_ptr() % 8 or out.data_ptr() % 8):
+    out = table.new_empty((l, w))
+    table_ptr, out_ptr = table.data_ptr(), out.data_ptr()
+    if w == 2 and (table_ptr % 8 or out_ptr % 8):
         raise ValueError("gather_rows: a 2-word table must be 8-byte aligned")
-    rc = _build.library().sgtd_gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), l, w,
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    _build.check(rc, "sgtd_gather_rows")
+    _build.launch("sgtd_gather_rows", dev, table_ptr, idx.data_ptr(), out_ptr, l, w)
     GATHER_LAUNCHES += 1
     return out

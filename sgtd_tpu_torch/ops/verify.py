@@ -81,13 +81,8 @@ def _hypothesis_votes_cuda(rot_h, t_h, vq, vdb, pair_valid, thr) -> torch.Tensor
     if h > MAX_H:
         raise ValueError(f"hypothesis_votes: {h} hypotheses exceed {MAX_H}")
     rot_h, t_h, vq, vdb, pair_valid = (a.contiguous() for a in args)
-    out = torch.empty((n, h), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    rc = lib.sgtd_hypothesis_votes(
-        rot_h.data_ptr(), t_h.data_ptr(), vq.data_ptr(), vdb.data_ptr(),
-        pair_valid.data_ptr(), out.data_ptr(), n, h, p, _thr2(thr),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "sgtd_hypothesis_votes")
+    out = rot_h.new_empty((n, h), dtype=torch.int32)
+    _build.launch("sgtd_hypothesis_votes", dev, rot_h.data_ptr(), t_h.data_ptr(), vq.data_ptr(),
+                  vdb.data_ptr(), pair_valid.data_ptr(), out.data_ptr(), n, h, p, _thr2(thr))
     LAUNCHES += 1
     return out

@@ -7,6 +7,9 @@ equal the JAX package's kernel exactly (Pallas in interpret mode, as the
 package's own tests run it).
 """
 
+import ctypes
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -166,3 +169,70 @@ def test_library_raises_without_nvcc(monkeypatch, tmp_path):
     finally:
         _build.library.cache_clear()
     assert not (tmp_path / "build").exists()
+
+
+_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _c_kind(param: str):
+    """The ctypes type a C parameter declaration binds to."""
+    if "*" in param:
+        return ctypes.c_void_p
+    words = param.split()[:-1]  # drop the name
+    if words[-2:] == ["long", "long"]:
+        return ctypes.c_longlong
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[words[-1]]
+
+
+def _declared_entry_points():
+    found = {}
+    for name in _build.SOURCES:
+        for entry, params in _ENTRY.findall((_build.CSRC / name).read_text()):
+            assert entry not in found, f"{entry} defined twice"
+            found[entry] = tuple(_c_kind(p) for p in params.split(","))
+    return found
+
+
+def test_sources_and_headers_exist_and_includes_are_hashed():
+    for name in _build.SOURCES + _build.HEADERS:
+        assert (_build.CSRC / name).is_file(), name
+    on_disk = {p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+    assert on_disk == set(_build.SOURCES + _build.HEADERS)
+    for name in _build.SOURCES:
+        local = re.findall(r'#include "([^"]+)"', (_build.CSRC / name).read_text())
+        assert set(local) <= set(_build.HEADERS), (name, local)
+
+
+def test_entry_points_of_the_sources_are_the_bound_signatures():
+    assert set(_declared_entry_points()) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
+def test_signature_matches_the_c_declaration(entry):
+    """Same number of parameters, and pointer / int / float / long long
+    kinds in order: a mismatch would show only as a crash on the card."""
+    assert _declared_entry_points()[entry] == _build.SIGNATURES[entry]
+    assert _build.SIGNATURES[entry][-1] is ctypes.c_void_p  # the stream, which launch() appends
+
+
+def test_launch_appends_the_stream_and_raises_on_an_error_code(monkeypatch):
+    calls = []
+    entries = {"sgtd_ok": lambda *a: calls.append(a) or 0, "sgtd_bad": lambda *a: 700}
+    monkeypatch.setattr(_build, "entry_points", lambda: entries)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    _build.launch("sgtd_ok", torch.device("cuda", 1), 5, 6)
+    assert calls == [(5, 6, 1001)]
+    with pytest.raises(RuntimeError, match="sgtd_bad: CUDA error 700"):
+        _build.launch("sgtd_bad", torch.device("cuda", 0))
+
+
+def test_every_wrapper_launches_through_the_one_helper():
+    ops = _build.CSRC.parents[0] / "ops"
+    for path in sorted(ops.glob("*.py")):
+        text = path.read_text()
+        if path.name == "_build.py":
+            assert text.count("_cuda_getCurrentRawStream(") == 1
+            continue
+        assert "current_stream" not in text and "library()" not in text and "ctypes" not in text, path.name
+    for name in ("probe", "expand", "verify", "nn", "gicp"):
+        assert "_build.launch(" in (ops / f"{name}.py").read_text(), name

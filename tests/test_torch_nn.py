@@ -5,7 +5,8 @@ them).
 The plain versions take the reference's expansion and FMA order (ops/nn.py),
 so indices are equal and squared distances bit-equal on every case here.
 The CUDA kernels run only on a card, where chip_smoke.py holds them
-against these plain versions.
+against these plain versions; here a lane-by-lane NumPy model of the knn
+kernel's warp-level selection is held against the plain version too.
 """
 
 import numpy as np
@@ -61,6 +62,87 @@ def test_knn_plain_equals_pallas(case):
     got = nn.knn(torch.from_numpy(q), torch.from_numpy(r), k)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+EDGE_CASES = ["k1", "k20", "k32", "T=k1", "T=k20", "T=k32", "T33", "T1000", "all_equal",
+              "masked30_self", "self"]
+
+
+def _edge_case(name):
+    """(query, ref, k) where a k-selection can go wrong: k at its ends, as
+    many references as k, reference counts off any tile, one repeated
+    point, long runs of equal distances (30% of a cloud at the masked
+    coordinate), self queries (zero and negative distances)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    cloud = lambda n: rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+    if name.startswith("T=k"):
+        return cloud(64), cloud(int(name[3:])), int(name[3:])
+    if name.startswith("k"):
+        return cloud(64), cloud(1000), int(name[1:])
+    if name.startswith("T"):
+        return cloud(64), cloud(int(name[1:])), 20
+    if name == "all_equal":
+        r = np.repeat(cloud(1), 100, axis=0)
+    elif name == "masked30_self":
+        r = cloud(300)
+        r[rng.uniform(size=300) < 0.3] = 1e6
+    else:  # "self"
+        r = cloud(256)
+    return r, r, 20
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_knn_plain_equals_pallas_on_edge_shapes(case):
+    q, r, k = _edge_case(case)
+    want = np.asarray(jax_knn(jnp.asarray(q), jnp.asarray(r), k))
+    got = nn.knn(torch.from_numpy(q), torch.from_numpy(r), k)
+    assert got.dtype == torch.int32 and got.shape == (q.shape[0], k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "all_equal":
+        np.testing.assert_array_equal(got.numpy(), np.broadcast_to(np.arange(k), got.shape))
+
+
+def _warp_select(d, k):
+    """The CUDA kernel's selection (csrc/nn.cu, knn_kernel) on one query's
+    float32 distances, lane by lane: the 32 best sorted across a warp, a
+    stripe of 32 references a step, the ballot of ``d < threshold``, the
+    passing lanes inserted in ascending order by a shift of the tail."""
+    inf = np.float32(np.inf)
+    ld, li, thr = np.full(32, inf, np.float32), np.zeros(32, np.int32), inf
+    lane = np.arange(32)
+    for j0 in range(0, len(d), 32):
+        stripe = np.full(32, inf, np.float32)
+        stripe[: len(d) - j0] = d[j0 : j0 + 32]
+        for src in np.nonzero(stripe < thr)[0]:
+            cd = stripe[src]
+            if cd < thr:
+                ud, ui = np.roll(ld, 1), np.roll(li, 1)  # shfl_up: lane 0 keeps its own
+                ud[0], ui[0] = ld[0], li[0]
+                move = ld > cd
+                here = move & ((lane == 0) | (ud <= cd))
+                ld = np.where(here, cd, np.where(move, ud, ld))
+                li = np.where(here, j0 + src, np.where(move, ui, li))
+                thr = ld[k - 1]
+    return li[:k]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_knn_warp_selection_model_equals_plain(case):
+    q, r, k = _edge_case(case)
+    q = q[:: max(1, len(q) // 8)]  # a few queries: the model is a Python loop
+    d = nn.sq_dists_plain(torch.from_numpy(q), torch.from_numpy(r)).numpy()
+    want = nn.knn_plain(torch.from_numpy(q), torch.from_numpy(r), k).numpy()
+    got = np.stack([_warp_select(row, k) for row in d])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_knn_warp_selection_orders_as_floats_and_breaks_ties_by_index():
+    tiny = np.float32(1e-45)  # subnormal
+    d = np.array([0.0, 3e38, -0.0, tiny, 1.0, -1e-7, 0.0, -tiny, 1.0, -1e-7, 3e38, -0.0] * 4, np.float32)
+    for k in (1, 5, 32):
+        np.testing.assert_array_equal(_warp_select(d, k), np.argsort(d, kind="stable")[:k])
+    # -0.0 and +0.0 are one distance: the index decides.
+    np.testing.assert_array_equal(_warp_select(np.array([0.0, -0.0, 0.0, -0.0], np.float32), 4), np.arange(4))
 
 
 def test_self_knn_and_ties_pick_lowest_index():
