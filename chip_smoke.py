@@ -1,6 +1,6 @@
 """Drive the PyTorch port's localization paths on one CUDA card, end to end.
 
-    python3 chip_smoke.py [--scale-frames N] [--baseline TREE]
+    python3 chip_smoke.py [--scale-frames N] [--baseline TREE]... [--kernels-only] [--sass FILE]
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -12,11 +12,16 @@ Phases (any failure ends the run with a non-zero exit):
    inputs seeded from NumPy: B1 and B2 must be equal, B3 equal except on
    pairs whose float64 d^2 lies within 1e-3 of thr^2; B4 and B5 equal
    except on rows whose kernel and plain picks lie within 1 ulp of each
-   other (at most 0.1% of rows); B6 equal at the 5,000-keyframe scan
+   other (at most 0.1% of rows); B4 at 64, 160 and 4 problems of 1,024 x
+   4,096 points (a chunk, the hard world's chunk, one query) and at
+   70,000 problems of 8 x 16, each launched twice for the same bits, with
+   the SM clock under its load and what its deferred argmin meets on
+   these clouds (``rescan_share``); B6 equal at the 5,000-keyframe scan
    (8 x 1,802,240 slots) for f_pad 5,000 and 20,000, and at f_pad 65,544
    (its global-memory branch). B7 at the rerank's shapes (64 problems,
-   1,024 source x 4,096 target points, a tenth of each side masked), with
-   no gate and with a 1.0 m gate, and at 160 problems: the per-point b and
+   1,024 source x 4,096 target points, a tenth of each side masked) and at
+   160 problems, with no gate and with a 1.0 m gate, at 4 problems and at
+   70,000 problems of 2 x 16 points in one launch: the per-point b and
    w equal (the same 1-ulp rule), M within 1e-5 of its point's largest
    entry, H and g within rtol 2e-4 + atol 2e-2, y0 and the sum of squared
    distances within rtol 1e-4 (nvcc contracts the algebra into FMAs, the
@@ -34,15 +39,20 @@ Phases (any failure ends the run with a non-zero exit):
    operations over 67 TFLOP/s, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time; B5's record
    carries the map build's shape under ``map``, B8's the 14.4M-row scan
-   under ``scan``. Then the host cost of a call of each wrapper
+   under ``scan``, B4's and B7's other shapes under ``shapes``. Then the
+   host cost of a call of each wrapper
    (``host_us``: the host clock over 200 back-to-back calls on tiny
    inputs, one synchronize at the end, least of 7 rounds), beside
    ``index_select``'s and the two parts of B8's (output allocation,
    launch). With ``--baseline TREE`` (another tree of the port, e.g. the
-   parent commit unpacked by ``git archive`` under ``build/``) the host
-   costs of both trees are taken in turns, a process a reading, and the
-   B5 and B8 kernels of both built libraries are timed in turns on the
-   same inputs (B8 on random rows and on runs of consecutive rows).
+   parent commit unpacked by ``git archive`` under ``build/``; the flag
+   may be repeated) the host costs of the first such tree and this one
+   are taken in turns, a process a reading, and the B4, B7, B5 and B8
+   kernels of every built library are timed in turns on the same inputs
+   (B4 and B7 at 64, 160 and 4 problems; B8 on random rows and on runs of
+   consecutive rows), equal outputs required. ``--sass FILE`` writes the
+   built library's SASS there (``cuobjdump -sass``); ``--kernels-only``
+   stops here.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
@@ -58,7 +68,8 @@ Phases (any failure ends the run with a non-zero exit):
    zero TRUNC_SCAN, success rate >= 0.95 on the refined poses, finite
    poses, every kernel launched. One chunk re-runs with B4/B5 patched to
    their plain versions and must give the same pick, refined and found,
-   with poses within 5e-3 m and 1e-3 rad. Prints the refined share, the
+   with poses within 5e-3 m and 1e-3 rad. Prints what B4's deferred argmin
+   meets on that chunk's real clouds (``rescan_share``), the refined share, the
    pose RMSE, the stage split of one chunk, map-covariance seconds and
    steady-state scans/s.
 5. The large map: the world of ``tools/scale_bench.py`` (seed 2027,
@@ -118,6 +129,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -341,6 +353,7 @@ def check_knn_edges(dev, rng) -> float:
 
 
 HOST_COST_CALLS, HOST_COST_ROUNDS = 200, 7
+CUOBJDUMP_DEFAULT = "/usr/local/cuda/bin/cuobjdump"
 
 
 def host_us(fn) -> float:
@@ -400,6 +413,63 @@ def host_costs(dev) -> dict:
         calls["gather_rows: launch"] = lambda: _build.launch(
             "sgtd_gather_rows", table.device, table.data_ptr(), idx.data_ptr(), out_rows.data_ptr(), 16, 2)
     return {name: host_us(fn) for name, fn in calls.items()}
+
+
+def clocks_under_load(fn) -> str:
+    """nvidia-smi's reading of the SM clock, its maximum and the power draw,
+    taken while calls of ``fn`` keep the card busy."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+                           stdout=subprocess.PIPE, text=True)
+    while smi.poll() is None:
+        for _ in range(100):
+            fn()
+    torch.cuda.synchronize()
+    return smi.communicate()[0].strip()
+
+
+def nn1_clouds(rng, p: int, n_src: int, n_tgt: int, dev):
+    """``p`` pairs of random clouds for B4: a fifth of each side at the
+    masked coordinate, an eighth of the targets exact duplicates of
+    earlier ones, a quarter of the sources within 0.01 of a target."""
+    src = rng.uniform(-50, 50, (p, n_src, 3)).astype(np.float32)
+    tgt = rng.uniform(-50, 50, (p, n_tgt, 3)).astype(np.float32)
+    dup = n_tgt // 8
+    tgt[:, n_tgt // 2 : n_tgt // 2 + dup] = tgt[:, :dup]
+    near = min(n_src // 4, n_tgt - n_tgt // 40)
+    src[:, :near] = tgt[:, n_tgt // 40 : n_tgt // 40 + near] + rng.normal(0, 0.01, (p, near, 3)).astype(np.float32)
+    src[rng.uniform(size=(p, n_src)) < 0.2] = 1e6
+    tgt[rng.uniform(size=(p, n_tgt)) < 0.2] = 1e6
+    return torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
+
+
+def rescan_share(q: torch.Tensor, r: torch.Tensor, group: int = 16):
+    """What a deferred argmin over groups of ``group`` consecutive
+    references meets on these clouds (P, N, 3) x (P, T, 3): the share of
+    (query, group) pairs whose group minimum lies below the query's
+    running minimum of the groups before (the scan of csrc/nn_common.cuh
+    records the group there, without a branch), and the share of (warp of
+    32 consecutive queries, group) pairs in which that holds on some lane
+    (what a design that rescans the group inside the loop would pay)."""
+    from sgtd_tpu_torch.ops import nn
+
+    lane_hits = warp_hits = lane_all = warp_all = 0
+    for qp, rp in zip(q, r):
+        d = nn.sq_dists_plain(qp, rp)  # (N, T)
+        n, t = d.shape
+        pad_t, pad_n = -t % group, -n % 32
+        d = torch.nn.functional.pad(d, (0, pad_t, 0, pad_n), value=float("inf"))
+        gm = d.view(n + pad_n, -1, group).amin(-1)
+        before = torch.cummin(gm, dim=1).values.roll(1, dims=1)
+        before[:, 0] = float("inf")
+        falls = (gm < before)[:n]
+        lane_hits += int(falls.sum())
+        lane_all += falls.numel()
+        by_warp = torch.nn.functional.pad(falls, (0, 0, 0, pad_n)).view(-1, 32, falls.shape[1]).any(1)
+        warp_hits += int(by_warp.sum())
+        warp_all += by_warp.numel()
+    return lane_hits / lane_all, warp_hits / warp_all
 
 
 def check_kernels(dev, card: str):
@@ -501,35 +571,53 @@ def check_kernels(dev, card: str):
         flops=int(args[4].sum()) * h * 3 * 27))
     log_bound(records[-1])
 
-    # B4 nn1: 16 queries x 4 candidates, 1,024 source x 4,096 target points
-    # (the rerank's correspondences), a fifth of each displaced to 1e6 as
-    # masked points are, and planted exact duplicates (distance ties).
+    # B4 nn1 at the rerank's shapes, 1,024 source x 4,096 target points: 64
+    # problems (a chunk of 16 queries x 4 candidates: the record's shape),
+    # 160 (the hard world's 10 candidates) and 4 (one query); then 70,000
+    # problems of 8 x 16 points in one launch. A fifth of each side is
+    # displaced to 1e6 as masked points are, with planted exact duplicates
+    # (distance ties). Each shape twice for the same bits.
     from sgtd_tpu_torch.ops import nn
 
-    p, n_src, n_tgt = CHUNK * RERANK_K, SRC_PTS, CLOUD_PTS
-    src = rng.uniform(-50, 50, (p, n_src, 3)).astype(np.float32)
-    tgt = rng.uniform(-50, 50, (p, n_tgt, 3)).astype(np.float32)
-    tgt[:, 2048:2560] = tgt[:, :512]
-    src[:, :256] = tgt[:, 100:356] + rng.normal(0, 0.01, (p, 256, 3)).astype(np.float32)
-    src[rng.uniform(size=(p, n_src)) < 0.2] = 1e6
-    tgt[rng.uniform(size=(p, n_tgt)) < 0.2] = 1e6
-    src, tgt = torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
-    got_i, got_d = nn.nn1(src, tgt)
-    want_i, want_d = nn.nn1_plain(src, tgt)
-    n_rows, err = check_nn_rows("B4 nn1", src, tgt, got_i, want_i)
-    same = got_i == want_i
-    if not bool((got_d[same] == want_d[same]).all()):
-        fail("B4 nn1: equal picks with unequal distances")
-    err = max(err, (got_d - want_d).abs().max().item())
-    ms = event_ms(lambda: nn.nn1(src, tgt), 50)
-    plain_ms = event_ms(lambda: nn.nn1_plain(src, tgt), 1, 3)
-    log(f"B4 nn1 ({p}, {n_src}) x ({p}, {n_tgt}): {n_rows} rows differ (1-ulp rule), "
-        f"max |err| {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) [{card}]")
-    # Operations: 8 per distance (3 FMAs and the combine) and a compare.
-    records.append(kernel_record(
-        "nn1", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:81", err, ms, plain_ms,
-        nbytes=4 * (3 * p * (n_src + n_tgt) + 2 * p * n_src), flops=8 * p * n_src * n_tgt))
-    log_bound(records[-1])
+    n_src, n_tgt = SRC_PTS, CLOUD_PTS
+    shapes = {}
+    for p, n, t in ((CHUNK * RERANK_K, n_src, n_tgt), (CHUNK * HARD_RERANK_K, n_src, n_tgt),
+                    (RERANK_K, n_src, n_tgt), (70000, 8, 16)):
+        src, tgt = nn1_clouds(rng, p, n, t, dev)
+        got_i, got_d = nn.nn1(src, tgt)
+        want_i, want_d = nn.nn1_plain(src, tgt)
+        n_rows, err = check_nn_rows(f"B4 nn1 P {p}", src, tgt, got_i, want_i)
+        same = got_i == want_i
+        if not bool((got_d[same] == want_d[same]).all()):
+            fail(f"B4 nn1 P {p}: equal picks with unequal distances")
+        again_i, again_d = nn.nn1(src, tgt)
+        if not (torch.equal(got_i, again_i) and torch.equal(got_d.view(torch.int32), again_d.view(torch.int32))):
+            fail(f"B4 nn1 P {p}: two launches on the same input differ in their bits")
+        err = max(err, (got_d - want_d).abs().max().item())
+        ms = event_ms(lambda: nn.nn1(src, tgt), 50 if p < 1000 else 10)
+        plain_ms = event_ms(lambda: nn.nn1_plain(src, tgt), 1, 3)
+        plan = nn.scan_plan(p, n)
+        log(f"B4 nn1 ({p}, {n}) x ({p}, {t}): {n_rows} rows differ (1-ulp rule), max |err| {err}, same bits "
+            f"twice; kernel {ms:.4f} ms ({plan[0]} queries a thread, {plan[2]} blocks of {plan[1]} warps), "
+            f"plain {plain_ms:.4f} ms (CUDA events) [{card}]")
+        # Operations: 8 per distance (3 FMAs and the combine) and a compare.
+        shapes[p] = kernel_record(
+            "nn1", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:81", err, ms, plain_ms,
+            nbytes=4 * (3 * p * (n + t) + 2 * p * n), flops=8 * p * n * t)
+        log_bound(shapes[p])
+        if p == CHUNK * RERANK_K:
+            log(f"   SM clock, its maximum and the power draw under back-to-back B4 launches: "
+                f"{clocks_under_load(lambda: nn.nn1(src, tgt))}")
+            lane, warp = rescan_share(src, tgt)
+            log(f"   deferred argmin on these random clouds: a query's running minimum falls in {lane:.4f} of "
+                f"its groups of 16 references; some lane of a warp's 32 queries sees it in {warp:.4f} of them")
+    # The record carries the chunk's shape; the others ride under "shapes".
+    rec = shapes.pop(CHUNK * RERANK_K)
+    rec["max_abs_err"] = max([rec["max_abs_err"]] + [r["max_abs_err"] for r in shapes.values()])
+    rec["shapes"] = {f"P {p}": {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                     for p, r in shapes.items()}
+    records.append(rec)
+    del src, tgt
 
     # B5 knn, k 20, self: the map covariances (200 keyframes x 4,096) and
     # the query covariances of one chunk (16 x 1,024), with masked points.
@@ -703,15 +791,23 @@ def check_fused_kernels(dev, card: str, rng):
         nbytes=nbytes, flops=p * n_src * (8 * n_tgt + 300)))
     log_bound(records[-1])
     del args, moved
-    # The hard world's rerank of 10 candidates: 160 problems a chunk.
-    p = CHUNK * HARD_RERANK_K
-    args = gicp_problems(rng, p, n_src, n_tgt, dev)
-    check_linearize(f"B7 linearize_gicp ({p}, {n_src}) x ({p}, {n_tgt}) gate {HARD_GATE_M} m", args, HARD_GATE_M)
-    moved = gicp._moved_fma(args[0], args[1])
-    ms = event_ms(lambda: gicp.linearize_sums(*args, HARD_GATE_M), 20)
-    nn1_ms = event_ms(lambda: nn.nn1(moved, args[4]), 20)
-    log(f"B7 linearize_gicp at {p} problems: kernel {ms:.4f} ms, B4 nn1 {nn1_ms:.4f} ms (CUDA events) [{card}]")
-    del args, moved
+    # The hard world's rerank of 10 candidates: 160 problems a chunk; one
+    # query's 4; and 70,000 problems of 2 x 16 points in one launch.
+    for p, n, t in ((CHUNK * HARD_RERANK_K, n_src, n_tgt), (RERANK_K, n_src, n_tgt), (70000, 2, 16)):
+        args = gicp_problems(rng, p, n, t, dev)
+        shape = f"({p}, {n}) x ({p}, {t})"
+        err = max(err, check_linearize(f"B7 linearize_gicp {shape} gate {HARD_GATE_M} m", args, HARD_GATE_M))
+        if p == CHUNK * HARD_RERANK_K:
+            err = max(err, check_linearize(f"B7 linearize_gicp {shape} no gate", args, float("inf")))
+        moved = gicp._moved_fma(args[0], args[1])
+        reps = 20 if p < 1000 else 5
+        ms = event_ms(lambda: gicp.linearize_sums(*args, HARD_GATE_M), reps)
+        nn1_ms = event_ms(lambda: nn.nn1(moved, args[4]), reps)
+        log(f"B7 linearize_gicp at {p} problems: kernel {ms:.4f} ms, B4 nn1 on the same points {nn1_ms:.4f} ms "
+            f"(CUDA events) [{card}]")
+        records[-1].setdefault("shapes", {})[f"P {p}"] = {"ms": ms, "nn1_ms": nn1_ms}
+        del args, moved
+    records[-1]["max_abs_err"] = err
 
     # B8 gather_rows: the bench DB's packed2 (399,104 rows of 2 words) at
     # one chunk's selected rows, and the 5,000-keyframe DB's at its scan;
@@ -756,10 +852,18 @@ def check_fused_kernels(dev, card: str, rng):
 def turns_ms(fn_a, fn_b, launches: int):
     """CUDA-event ms a call of each, taken in turns (b, a, a, b): the median
     of each one's two ``event_ms`` readings of three rounds."""
-    t_a, t_b = [], []
-    for fn, acc in ((fn_b, t_b), (fn_a, t_a), (fn_a, t_a), (fn_b, t_b)):
-        acc.append(event_ms(fn, launches, 3))
-    return statistics.median(t_a), statistics.median(t_b)
+    t_b, t_a = turns_ms_of([fn_b, fn_a], launches)
+    return t_a, t_b
+
+
+def turns_ms_of(fns, launches: int) -> list:
+    """CUDA-event ms a call of each of ``fns``, taken in turns: through the
+    list and back again (a, b, c, c, b, a), an ``event_ms`` reading of three
+    rounds each time; the median of each one's two readings."""
+    acc = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        acc[i].append(event_ms(fns[i], launches, 3))
+    return [statistics.median(t) for t in acc]
 
 
 def baseline_run(tree: str) -> dict:
@@ -773,46 +877,107 @@ def baseline_run(tree: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def compare_baseline(dev, card: str, tree: str) -> None:
+def library_of(tree: str) -> str:
+    """The path of the kernel library of the port's tree at ``tree``, built
+    there by its own ``ops/_build.py`` in a process of its own."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from sgtd_tpu_torch.ops import _build; print(_build.build())")
+    out = subprocess.run([sys.executable, "-c", code, os.path.abspath(tree)], capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"build of {tree}: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> None:
     """With ``--baseline TREE`` (another tree of the port, e.g. the parent
-    commit unpacked by ``git archive`` under ``build/``): the wrappers'
-    host costs of both trees, each in its own process, in turns (baseline,
-    this, this, baseline); then the kernel bodies of B5 and B8 of both
-    built libraries, called straight through ctypes on the same inputs, in
-    turns, with equal outputs required."""
+    commit unpacked by ``git archive`` under ``build/``; the flag may be
+    given several times): the wrappers' host costs of the first such tree
+    and of this one, each in its own process, in turns (baseline, this,
+    this, baseline); then the kernel bodies of B4, B7, B5 and B8 of every
+    built library, called straight through ctypes on the same inputs, in
+    turns through the trees and back, with equal outputs required (B7: the
+    per-point b and w and n_valid equal, the largest gap of the other
+    outputs printed)."""
     import ctypes
 
-    from sgtd_tpu_torch.ops import _build
+    from sgtd_tpu_torch.ops import _build, gicp
 
     here = str(_build.CSRC.parents[1])
-    runs = [baseline_run(t) for t in (tree, here, here, tree)]
-    for name in runs[0]["host_us"]:
-        old, new = (min(runs[i]["host_us"][name], runs[j]["host_us"][name]) for i, j in ((0, 3), (1, 2)))
-        log(f"   host cost in turns, {name}: baseline {old:.2f} us, this tree {new:.2f} us a call "
-            f"(readings {[round(r['host_us'][name], 2) for r in runs]})")
+    paths = [library_of(t) for t in trees]
+    for tree, path in zip(trees, paths):
+        usage = [u.split("_cu_", 1)[-1] for u in ptxas_usage(open(os.path.splitext(path)[0] + ".log").read())
+                 if "nn1" in u or "linearize" in u]
+        log(f"   ptxas, {tree}: " + " | ".join(usage))
+    if with_host_costs:
+        runs = [baseline_run(t) for t in (trees[0], here, here, trees[0])]
+        for name in runs[0]["host_us"]:
+            old, new = (min(runs[i]["host_us"][name], runs[j]["host_us"][name]) for i, j in ((0, 3), (1, 2)))
+            log(f"   host cost in turns, {name}: {trees[0]} {old:.2f} us, this tree {new:.2f} us a call "
+                f"(readings {[round(r['host_us'][name], 2) for r in runs]})")
 
     def bind(path):
         lib = ctypes.CDLL(path)
-        for name in ("sgtd_knn", "sgtd_gather_rows"):
+        for name in ("sgtd_nn1", "sgtd_linearize_gicp", "sgtd_knn", "sgtd_gather_rows"):
             getattr(lib, name).argtypes = _build.SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         return lib
 
-    old, new = bind(runs[0]["lib"]), bind(str(_build.build()))
+    # Every baseline, then this tree last.
+    names = list(trees) + ["this tree"]
+    libs = [bind(path) for path in paths] + [bind(str(_build.build()))]
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(SEED + 1)
+    fmt = lambda ms: ", ".join(f"{name} {t:.4f} ms" for name, t in zip(names, ms))
+
+    # B4 and B7 at a chunk's 64 problems, the hard world's 160 and one query's 4.
+    for p in (CHUNK * RERANK_K, CHUNK * HARD_RERANK_K, RERANK_K):
+        n, t = SRC_PTS, CLOUD_PTS
+        src, tgt = nn1_clouds(rng, p, n, t, dev)
+        outs = [(torch.empty((p, n), dtype=torch.int32, device=dev), torch.empty((p, n), device=dev)) for _ in libs]
+        run = lambda lib, o: lib.sgtd_nn1(src.data_ptr(), tgt.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
+                                          p, n, t, stream())
+        if any(run(lib, o) for lib, o in zip(libs, outs)):
+            fail(f"baseline compare: B4 nn1 at {p} problems failed to launch")
+        bits = lambda o: (o[0], o[1].view(torch.int32))
+        for name, o in zip(names, outs):
+            if not all(torch.equal(a, b) for a, b in zip(bits(o), bits(outs[-1]))):
+                fail(f"baseline compare: B4 nn1 at {p} problems: {name} differs from this tree in its bits")
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 50)
+        log(f"   B4 nn1 ({p}, {n}) x ({p}, {t}), kernel bodies in turns, equal bits: {fmt(ms)} (CUDA events) [{card}]")
+
+        gate = float("inf") if p == CHUNK * RERANK_K else HARD_GATE_M
+        args = [a.contiguous() for a in gicp_problems(rng, p, n, t, dev)]
+        outs = [(torch.empty((p, -(-n // 32), gicp.PARTIAL), device=dev), torch.empty((p, gicp.ROW), device=dev),
+                 torch.empty((p, n, gicp.AUX), device=dev)) for _ in libs]
+        run = lambda lib, o: lib.sgtd_linearize_gicp(*(a.data_ptr() for a in args), *(x.data_ptr() for x in o),
+                                                     p, n, t, gicp._gate2(gate), stream())
+        if any(run(lib, o) for lib, o in zip(libs, outs)):
+            fail(f"baseline compare: B7 linearize_gicp at {p} problems failed to launch")
+        gaps = []
+        for name, (_, sums, aux) in zip(names, outs):
+            want_sums, want_aux = outs[-1][1:]
+            if not (torch.equal(aux[..., :3], want_aux[..., :3]) and torch.equal(aux[..., 12], want_aux[..., 12])
+                    and torch.equal(sums[:, gicp.N_VALID], want_sums[:, gicp.N_VALID])):
+                fail(f"baseline compare: B7 linearize_gicp at {p} problems: {name} differs from this tree in "
+                     "b, w or n_valid")
+            gaps.append(max((sums - want_sums).abs().max().item(), (aux - want_aux).abs().max().item()))
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 50)
+        log(f"   B7 linearize_gicp ({p}, {n}) x ({p}, {t}) gate {gate}, kernel bodies in turns, b, w and n_valid "
+            f"equal, largest gap to this tree's other outputs {gaps[:-1]}: {fmt(ms)} (CUDA events) [{card}]")
+        del src, tgt, args, outs
+
     k = 20
     for p, n in ((CHUNK, SRC_PTS), (NUM_MAP, CLOUD_PTS)):
         pts = rng.uniform(-50, 50, (p, n, 3)).astype(np.float32)
         pts[rng.uniform(size=(p, n)) < 0.2] = 1e6
         pts = torch.from_numpy(pts).to(dev)
-        outs = [torch.empty((p, n, k), dtype=torch.int32, device=dev) for _ in range(2)]
+        outs = [torch.empty((p, n, k), dtype=torch.int32, device=dev) for _ in libs]
         run = lambda lib, o: lib.sgtd_knn(pts.data_ptr(), pts.data_ptr(), o.data_ptr(), p, n, n, k, stream())
-        if run(old, outs[0]) or run(new, outs[1]) or not torch.equal(*outs):
-            fail(f"baseline compare: B5 knn ({p}, {n}) differs between the two libraries")
-        new_ms, old_ms = turns_ms(lambda: run(new, outs[1]), lambda: run(old, outs[0]), 5 if p == NUM_MAP else 50)
-        log(f"   B5 knn ({p}, {n}) self, k {k}, kernel bodies in turns: baseline {old_ms:.4f} ms, "
-            f"this tree {new_ms:.4f} ms (CUDA events) [{card}]")
+        if any(run(lib, o) for lib, o in zip(libs, outs)) or not all(torch.equal(o, outs[-1]) for o in outs):
+            fail(f"baseline compare: B5 knn ({p}, {n}) differs between the libraries")
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 5 if p == NUM_MAP else 50)
+        log(f"   B5 knn ({p}, {n}) self, k {k}, kernel bodies in turns, equal outputs: {fmt(ms)} "
+            f"(CUDA events) [{card}]")
     for m, l in ((399104, 106496), (9775363, SCALE_CHUNK * 1802240)):
         table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (m, 2), dtype=np.int64).astype(np.int32)).to(dev)
         random = torch.from_numpy(rng.integers(0, m, l, dtype=np.int32)).to(dev)
@@ -823,16 +988,16 @@ def compare_baseline(dev, card: str, tree: str) -> None:
         lens = torch.from_numpy(rng.integers(8, 65, n_runs)).to(dev)
         first = torch.cumsum(lens, 0) - lens
         run_of = torch.repeat_interleave(torch.arange(n_runs, device=dev), lens)[:l]
-        runs = (starts[run_of] + torch.arange(l, device=dev) - first[run_of]).to(torch.int32)
-        outs = [torch.empty((l, 2), dtype=torch.int32, device=dev) for _ in range(2)]
-        for pattern, idx in (("random rows", random), ("runs of 8-64 rows", runs)):
+        in_runs = (starts[run_of] + torch.arange(l, device=dev) - first[run_of]).to(torch.int32)
+        outs = [torch.empty((l, 2), dtype=torch.int32, device=dev) for _ in libs]
+        for pattern, idx in (("random rows", random), ("runs of 8-64 rows", in_runs)):
             run = lambda lib, o: lib.sgtd_gather_rows(table.data_ptr(), idx.data_ptr(), o.data_ptr(), l, 2, stream())
-            if run(old, outs[0]) or run(new, outs[1]) or not torch.equal(*outs):
-                fail(f"baseline compare: B8 gather_rows x {l} differs between the two libraries")
-            new_ms, old_ms = turns_ms(lambda: run(new, outs[1]), lambda: run(old, outs[0]), 20)
+            if any(run(lib, o) for lib, o in zip(libs, outs)) or not all(torch.equal(o, outs[-1]) for o in outs):
+                fail(f"baseline compare: B8 gather_rows x {l} differs between the libraries")
+            ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 20)
             lib_ms = event_ms(lambda: torch.index_select(table, 0, idx), 20, 3)
-            log(f"   B8 gather_rows ({m}, 2) x {l}, {pattern}, kernel bodies in turns: baseline {old_ms:.4f} ms, "
-                f"this tree {new_ms:.4f} ms; index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
+            log(f"   B8 gather_rows ({m}, 2) x {l}, {pattern}, kernel bodies in turns, equal outputs: {fmt(ms)}; "
+                f"index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
 
 
 def main_path(dev, card: str):
@@ -1078,6 +1243,16 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
         fail(f"plain-version rerun poses differ by {dt} m / {dr} rad")
     log(f"plain-version (B4, B5) rerun of chunk 0: pick, refined, found equal; poses within "
         f"{dt:.3e} m / {dr:.3e} rad")
+
+    # What B4's deferred argmin meets on this chunk's real clouds.
+    with mock.patch.object(nn, "nn1", wraps=nn.nn1) as seen:
+        refined_stages(*args)
+    for name, call in (("first LM trip", seen.call_args_list[0]), ("final fitness pass", seen.call_args_list[-1])):
+        lane, warp = rescan_share(*call.args)
+        log(f"deferred argmin on chunk 0's clouds, {name} ({tuple(call.args[0].shape)} x "
+            f"{tuple(call.args[1].shape)}): a query's running minimum falls in {lane:.4f} of its groups of 16 "
+            f"references; some lane of a warp's 32 queries sees it in {warp:.4f} of them")
+    del seen
 
     splits = [refined_stages(*args)[2] for _ in range(3)]
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
@@ -1527,13 +1702,15 @@ def hard_world(dev, card: str) -> None:
 def ptxas_usage(text: str) -> list:
     """'entry: Used N registers, ...' for each kernel in nvcc's -Xptxas -v
     output (mangled entry names)."""
-    out, entry = [], None
+    out, entry, spills = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             entry = m.group(1)
+        elif "spill stores" in ln:
+            spills = ln.strip()
         elif "Used" in ln and entry:
-            out.append(f"{entry}: {ln.split('Used', 1)[1].strip()}")
+            out.append(f"{entry}: {ln.split('Used', 1)[1].strip()}; {spills}")
             entry = None
     return out
 
@@ -1542,9 +1719,15 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale-frames", type=int, default=5000,
                         help="keyframes of phase 5's large map (default 5000)")
-    parser.add_argument("--baseline", metavar="TREE",
+    parser.add_argument("--baseline", metavar="TREE", action="append",
                         help="another tree of the port (e.g. the parent commit unpacked under build/): "
-                             "phase 2 also times its wrappers and its B5 and B8 against this tree's, in turns")
+                             "phase 2 also times its wrappers and its B4, B7, B5 and B8 against this tree's, in "
+                             "turns; may be given several times (host costs: the first tree's only)")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 2 and the --baseline comparison (which then skips the host "
+                             "costs): no path is driven and no result line is printed")
+    parser.add_argument("--sass", metavar="FILE",
+                        help="write the SASS of the built kernel library (cuobjdump -sass) to FILE")
     parser.add_argument("--host-cost-of", metavar="TREE",
                         help="only measure the wrappers' host costs of the port's tree at TREE and print "
                              "them as one JSON line (what --baseline runs, a process a reading)")
@@ -1575,6 +1758,10 @@ def main() -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
     log("ptxas: " + " | ".join(ptxas_usage(path.with_suffix(".log").read_text())))
+    if args.sass:
+        with open(args.sass, "w") as f:
+            subprocess.run([shutil.which("cuobjdump") or CUOBJDUMP_DEFAULT, "-sass", str(path)], stdout=f, check=True)
+        log(f"SASS of {path.name} written to {args.sass}")
 
     records = check_kernels(dev, card)
     costs = host_costs(dev)
@@ -1585,7 +1772,10 @@ def main() -> None:
         f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "
         + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()) + f" [{card}]")
     if args.baseline:
-        compare_baseline(dev, card, args.baseline)
+        compare_baselines(dev, card, args.baseline, with_host_costs=not args.kernels_only)
+    if args.kernels_only:
+        log(f"--kernels-only: stopping after phase 2 ({time.perf_counter() - T_START:.1f} s)")
+        return
     b8_launches, ctx = main_path(dev, card)
     launches, map_knn_launches, *refined = refined_path(dev, card, *ctx)
     del ctx

@@ -27,12 +27,12 @@
 // The tensor cores cannot take the cross term: the distance is this fixed
 // chain of float32 FMAs, bit for bit.
 //
-// nn1 (simple first): one thread per query point, one block per (problem,
-// 128-query tile); the problem's reference points stream through shared
-// memory in tiles of 1,024 (x, y, z, |r|^2) float4s (16 KB), each computing
-// its |r|^2 once; every thread of a warp reads the same float4 (a
-// broadcast, no bank conflicts). Scanning the references in ascending
-// index with a strict < keeps the lowest index on ties.
+// nn1: the scan of nn_common.cuh (nearest), whose header says what bounds
+// it on this card and what the design does about it: several queries a
+// thread, a deferred argmin over groups of 16 references, the reference
+// range split over the warps of a block, a one-dimensional grid over
+// (problem, query tile) laid out by scan_plan. The kernel here only loads
+// the queries and stores thread t's answer for slot t.
 //
 // knn: what bounds it is the selection, not the distances the bound
 // counts. A query meets about k (1 + ln(T / k)) references that enter its
@@ -70,7 +70,7 @@
 
 namespace {
 
-using namespace sgtd;  // kThreads, kTile, sq_norm, sq_dist, load_tile, nearest
+using namespace sgtd;  // kTile, sq_dist, load_point, load_tile, nearest, scan_plan
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 // knn: warps a block, queries a warp, and so queries a block (the wrapper's
@@ -80,36 +80,25 @@ constexpr int kKnnQueries = 4;
 constexpr int kKnnThreads = 32 * kKnnWarps;
 constexpr int kKnnBlockQueries = kKnnWarps * kKnnQueries;
 
-// Query point n of the problem with |q|^2 in .w (zeros past the end).
-__device__ __forceinline__ float4 load_query(const float* __restrict__ query,
-                                             int64_t row, bool live) {
-  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live) {
-    q.x = query[3 * row];
-    q.y = query[3 * row + 1];
-    q.z = query[3 * row + 2];
-    q.w = sq_norm(q.x, q.y, q.z);
-  }
-  return q;
-}
-
-__global__ void nn1_kernel(const float* __restrict__ query,
-                           const float* __restrict__ ref,
-                           int32_t* __restrict__ out_idx,
-                           float* __restrict__ out_sqd, int N, int T) {
+template <int Q>
+__global__ void __launch_bounds__(kMaxThreads)
+    nn1_kernel(const float* __restrict__ query, const float* __restrict__ ref,
+               int32_t* __restrict__ out_idx, float* __restrict__ out_sqd,
+               int N, int T, int tiles) {
   __shared__ float4 tile[kTile];
-  const int64_t prob = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t row = prob * N + n;
-  const float4 q = load_query(query, row, n < N);
-  const float* r = ref + prob * 3 * static_cast<int64_t>(T);
+  const int64_t prob = blockIdx.x / tiles;
+  const int n0 = (blockIdx.x - prob * tiles) * (32 * Q);
+  const float* qp = query + prob * 3 * static_cast<int64_t>(N);
+  const auto load_q = [&](int slot) { return load_point(qp, n0 + slot, n0 + slot < N); };
 
+  float4 q;
   float best;
   int best_i;
-  nearest(q, r, T, tile, &best, &best_i);
-  if (n < N) {
-    out_idx[row] = best_i;
-    out_sqd[row] = best;
+  nearest<Q>(load_q, ref + prob * 3 * static_cast<int64_t>(T), T, tile, &q, &best, &best_i);
+  const int n = n0 + threadIdx.x;
+  if (threadIdx.x < 32 * Q && n < N) {
+    out_idx[prob * N + n] = best_i;
+    out_sqd[prob * N + n] = best;
   }
 }
 
@@ -144,7 +133,7 @@ __global__ void __launch_bounds__(kKnnThreads, 4)
   float thr[kKnnQueries];  // the k-th smallest so far: lane k - 1's ld
 #pragma unroll
   for (int c = 0; c < kKnnQueries; ++c) {
-    q[c] = load_query(query, prob * N + n0 + c, n0 + c < N);
+    q[c] = load_point(query, prob * N + n0 + c, n0 + c < N);
     ld[c] = inf;
     li[c] = 0;
     thr[c] = inf;
@@ -182,19 +171,19 @@ __global__ void __launch_bounds__(kKnnThreads, 4)
       out_idx[(prob * N + n0 + c) * k + lane] = li[c];
 }
 
-dim3 grid_of(int P, int N) { return dim3((N + kThreads - 1) / kThreads, P); }
-
 }  // namespace
 
 // query (P, N, 3), ref (P, T, 3) float32 -> idx (P, N) int32, sqd (P, N)
-// float32. P <= 65535, T >= 1.
+// float32. T >= 1, P x ceil(N / 32) < 2^31.
 extern "C" int sgtd_nn1(const void* query, const void* ref, void* idx,
                         void* sqd, int P, int N, int T, void* stream) {
   if (P > 0 && N > 0) {
-    nn1_kernel<<<grid_of(P, N), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+    const ScanPlan plan = scan_plan(P, N);
+    const auto kernel = plan.queries == 1 ? nn1_kernel<1> : nn1_kernel<kWideQueries>;
+    kernel<<<static_cast<unsigned>(plan.blocks), 32 * plan.warps, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(query), static_cast<const float*>(ref),
-        static_cast<int32_t*>(idx), static_cast<float*>(sqd), N, T);
+        static_cast<int32_t*>(idx), static_cast<float*>(sqd), N, T, plan.tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,12 +33,10 @@ from sgtd_tpu_torch.utils import batch_take
 # Kernel launches since the last reset (the main-path check reads them).
 LINEARIZE_LAUNCHES = 0
 
-THREADS = 128  # source points per block of the kernel
 PARTIAL = 32  # floats per block of the kernel's scratch: 30 sums, 0, 0
 ROW = 48  # floats per row of sums: H 36, g 6, y0, n_valid, sum_sqd, 0 x 3
 AUX = 16  # floats per source point of aux: b 3, M 9, w, 0 x 3
 N_VALID, SUM_SQD = 43, 44  # columns of sums
-MAX_PROBLEMS = 65535  # grid.y of the kernel
 
 # (i, j) of the 21 upper-triangular entries of H, in the order they are
 # summed, and for each of the 48 columns of a row of sums the summed
@@ -195,15 +193,15 @@ def _linearize_cuda(T, src, src_cov6, src_mask, tgt_eff, payload, gate):
     for name, x in tensors.items():
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"linearize_gicp: {name} is {tuple(x.shape)}, expected {shapes[name]}")
-    if p > MAX_PROBLEMS or t < 1 or s < 1:
-        raise ValueError(
-            f"linearize_gicp: {p} problems (at most {MAX_PROBLEMS}), {s} source and {t} "
-            "target points (at least 1 each)"
-        )
+    if t < 1 or s < 1:
+        raise ValueError(f"linearize_gicp: {s} source and {t} target points (at least 1 each)")
+    nn.check_scan_grid("linearize_gicp", p, s)
     T, src, src_cov6, src_mask, tgt_eff, payload = (x.contiguous() for x in tensors.values())
-    nblk = -(-s // THREADS)
     dev = T.device
-    partial = T.new_empty((p, nblk, PARTIAL))
+    # One row for every block of a problem. The kernel lays the blocks out
+    # itself (nn.scan_plan: 32 or 128 source points a block) and uses the
+    # first rows; 32 points a block is the most it can need.
+    partial = T.new_empty((p, -(-s // 32), PARTIAL))
     sums = T.new_empty((p, ROW))
     aux = T.new_empty((p, s, AUX))
     payload_ptr, aux_ptr = payload.data_ptr(), aux.data_ptr()

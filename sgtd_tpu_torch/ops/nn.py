@@ -25,9 +25,13 @@ NN1_LAUNCHES = 0
 KNN_LAUNCHES = 0
 
 MAX_K = 32  # the knn kernel's list: one entry a lane of a warp
-MAX_PROBLEMS = 65535  # grid.y of the nn1 kernel
 KNN_QUERIES_PER_BLOCK = 32  # csrc/nn.cu: kKnnWarps x kKnnQueries
 MAX_KNN_BLOCKS = (1 << 31) - 1  # grid.x of the knn kernel, problems x query tiles
+# The nn1 scan's launch shape (csrc/nn_common.cuh: kWideQueries, kWideBlocks,
+# kMinWarps, kMaxWarps, kWarpsWanted), shared with ops.gicp's kernel.
+SCAN_WIDE_QUERIES, SCAN_WIDE_BLOCKS = 4, 132
+SCAN_MIN_WARPS, SCAN_MAX_WARPS, SCAN_WARPS_WANTED = 4, 16, 4096
+MAX_SCAN_BLOCKS = (1 << 31) - 1  # grid.x of the scan, problems x query tiles
 # Distances per block of the plain versions: a few float64 (rows, T)
 # temporaries of 2^24 entries (128 MB each) bound their memory.
 _PLAIN_BLOCK = 1 << 24
@@ -117,6 +121,28 @@ def _check_k(k: int, t: int) -> None:
         raise ValueError(f"knn: k={k} needs 1 <= k <= T={t}")
 
 
+def scan_plan(p: int, n: int) -> Tuple[int, int, int]:
+    """How the scan of ``csrc/nn_common.cuh`` lays ``p`` problems of ``n``
+    queries over the card (its ``scan_plan``, in Python): (queries a
+    thread, warps a block, blocks). A thread holds 4 queries where that
+    still gives every SM a block, else 1; a block takes 32 x queries of one
+    problem, and its warps (a power of two) split the reference range so
+    that about ``SCAN_WARPS_WANTED`` warps are in flight."""
+    wide = 32 * SCAN_WIDE_QUERIES
+    queries = SCAN_WIDE_QUERIES if n >= wide and p * -(-n // wide) >= SCAN_WIDE_BLOCKS else 1
+    blocks = p * -(-n // (32 * queries))
+    warps = SCAN_MIN_WARPS
+    while warps < SCAN_MAX_WARPS and blocks * warps < SCAN_WARPS_WANTED:
+        warps *= 2
+    return queries, warps, blocks
+
+
+def check_scan_grid(name: str, p: int, n: int) -> None:
+    """Raise where ``p`` problems of ``n`` queries exceed the scan's grid."""
+    if scan_plan(p, n)[2] > MAX_SCAN_BLOCKS:
+        raise ValueError(f"{name}: {p} problems of {n} queries exceed the kernel's grid")
+
+
 def nn1(query: torch.Tensor, ref: torch.Tensor):
     """Nearest ``ref`` point of each ``query`` point: (..., N, 3) x
     (..., T, 3) float32 (same leading dims) -> (idx (..., N) int32,
@@ -147,8 +173,7 @@ def _nn1_cuda(query: torch.Tensor, ref: torch.Tensor):
     global NN1_LAUNCHES
     batch, q, r = _check_cuda(query, ref, "nn1")
     p, n, t = q.shape[0], q.shape[1], r.shape[1]
-    if p > MAX_PROBLEMS:
-        raise ValueError(f"nn1: {p} problems exceed {MAX_PROBLEMS}")
+    check_scan_grid("nn1", p, n)
     idx = q.new_empty((p, n), dtype=torch.int32)
     sqd = q.new_empty((p, n))
     _build.launch("sgtd_nn1", q.device, q.data_ptr(), r.data_ptr(), idx.data_ptr(), sqd.data_ptr(), p, n, t)

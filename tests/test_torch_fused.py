@@ -128,6 +128,70 @@ def test_linearize_all_masked_target_is_zero_and_finite():
     assert int(out.num_inliers) == 0
 
 
+def _problems(rng, p, s_n, t_n):
+    """p small registration problems: (T, src, src_cov, src_mask, tgt,
+    tgt_mask, tgt_eff, tgt_cov) as NumPy arrays with a leading p."""
+    src = rng.normal(0, 10, (p, s_n, 3)).astype(np.float32)
+    tgt = rng.normal(0, 10, (p, t_n, 3)).astype(np.float32)
+    tgt[:, t_n // 2 :] = tgt[:, : t_n - t_n // 2]  # duplicated targets: distance ties
+    smask = rng.uniform(size=(p, s_n)) > 0.1
+    tmask = rng.uniform(size=(p, t_n)) > 0.1
+    tmask[:, 0] = True
+    tgt_eff = np.where(tmask[..., None], tgt, 1e6).astype(np.float32)
+
+    def rand_cov(n):
+        a = rng.normal(0, 1, (p, n, 3, 3)).astype(np.float32)
+        return a @ a.transpose(0, 1, 3, 2) + 0.1 * np.eye(3, dtype=np.float32)
+
+    Tm = np.tile(np.eye(4, dtype=np.float32), (p, 1, 1))
+    Tm[:, :3, 3] = rng.normal(0, 0.3, (p, 3))
+    return Tm, src, rand_cov(s_n), smask, tgt, tmask, tgt_eff, rand_cov(t_n)
+
+
+@pytest.mark.parametrize("s_n,t_n", [(100, 203), (33, 1), (5, 7)])
+def test_linearize_plain_matches_pallas_on_ragged_batches(s_n, t_n):
+    """Three problems at once whose point counts divide neither a warp, a
+    group of 16 targets nor a block of 32 or 128 source points (and a single
+    target): every problem of the batched plain version against the Pallas
+    kernel on that problem alone, correspondences equal."""
+    rng = np.random.default_rng(s_n)
+    Tm, src, scov, smask, tgt, tmask, tgt_eff, tcov = _problems(rng, 3, s_n, t_n)
+    scov6 = gicp_ops.cov6(T(scov))
+    H, g, y0, aux = gicp_ops.linearize_gicp(
+        T(Tm), T(src), scov6, T(smask), T(tgt_eff), gicp_ops.build_gicp_payload(T(tgt), T(tmask), T(tcov)), 4.0)
+    b, _, w = gicp_ops.unpack_aux(aux)
+    for i in range(3):
+        payload = jax_pallas_gicp.build_gicp_payload(*map(jnp.asarray, (tgt[i], tmask[i], tcov[i])))
+        want = [np.asarray(x) for x in jax_pallas_gicp.linearize_gicp(
+            jnp.asarray(Tm[i]), jnp.asarray(src[i]), jnp.asarray(scov6[i].numpy()), jnp.asarray(smask[i]),
+            jnp.asarray(tgt_eff[i]), payload, 4.0)]
+        np.testing.assert_allclose(H[i].numpy(), want[0], rtol=2e-4, atol=2e-2)
+        np.testing.assert_allclose(g[i].numpy(), want[1], rtol=2e-4, atol=2e-2)
+        np.testing.assert_allclose(y0[i].numpy(), want[2], rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(b[i].numpy(), want[3][:, :3], atol=1e-5)
+        np.testing.assert_array_equal(w[i].numpy(), want[3][:, 9])
+
+
+def test_linearize_takes_more_problems_than_a_grid_axis_holds():
+    """70,000 problems (more than 65,535) in one call: the plain version
+    here equals the same problems taken alone, and the CUDA wrapper's own
+    checks pass the count on (a meta tensor stops at the device check, not
+    at a problem limit); its scratch holds a row for every block."""
+    rng = np.random.default_rng(13)
+    p = 70000
+    Tm, src, scov, smask, tgt, tmask, tgt_eff, tcov = _problems(rng, p, 2, 5)
+    args = (T(Tm), T(src), gicp_ops.cov6(T(scov)), T(smask), T(tgt_eff),
+            gicp_ops.build_gicp_payload(T(tgt), T(tmask), T(tcov)))
+    sums, aux = gicp_ops.linearize_sums(*args)
+    assert sums.shape == (p, gicp_ops.ROW) and aux.shape == (p, 2, gicp_ops.AUX)
+    assert torch.isfinite(sums).all() and sums[:, gicp_ops.N_VALID].sum() > p // 2
+    for i in (0, 40000, p - 1):
+        one_sums, one_aux = gicp_ops.linearize_sums(*(a[i : i + 1] for a in args))
+        assert torch.equal(sums[i : i + 1], one_sums) and torch.equal(aux[i : i + 1], one_aux)
+    with pytest.raises(ValueError, match="CUDA tensors on one card required"):
+        gicp_ops._linearize_cuda(*(a.to("meta") for a in args), float("inf"))
+
+
 # --- the fused gicp_align. ---
 
 

@@ -316,18 +316,16 @@ def test_build_descriptors_chunked_equals_unchunked(world):
 # --- chip_smoke.py's 5,000-keyframe reference, from sgtd_tpu. ---
 
 
-@pytest.mark.slow
-def test_reference_5k_digest():
-    """REFERENCE_5K, the rows and candidate digest that chip_smoke.py holds
-    the card's large-map run to, is what sgtd_tpu gives on the CPU: the
-    world and pipeline of tools/scale_bench.py (default config, the sel
-    path) with per-query ``localize``; about 80 s on a CPU."""
+@functools.cache
+def _reference_5k():
+    """The 5,000-keyframe world and pipeline of tools/scale_bench.py from
+    sgtd_tpu on the CPU (default config, the sel path): (config, DB, build
+    report, the 32 query graphs)."""
     import chip_smoke as cs
     from sgtd_tpu.config import SGTDConfig
     from sgtd_tpu.data.synthetic import make_world, observe
     from sgtd_tpu.eval.runner import build_descriptors_chunked as jax_chunked
     from sgtd_tpu.eval.runner import stack_graphs as jax_stack
-    from sgtd_tpu.match.search import TRUNC_SCAN as JAX_TRUNC_SCAN
 
     num_map = 5000
     cfg = SGTDConfig()
@@ -342,9 +340,79 @@ def test_reference_5k_digest():
     db, rep, tot = jax_build_calibrated(jax_chunked(mb, cfg), mb.pose, jax_chunked(sample, cfg), cfg.desc)
     del maps, mb
     cfg = fit_scan_slots(int(np.asarray(tot).max()), tuned_config(cfg, rep))
+    return cfg, db, rep, queries
+
+
+@pytest.mark.slow
+def test_reference_5k_digest():
+    """REFERENCE_5K, the rows and candidate digest that chip_smoke.py holds
+    the card's large-map run to, is what sgtd_tpu gives on the CPU: the
+    world and pipeline of tools/scale_bench.py (default config, the sel
+    path) with per-query ``localize``; about 80 s on a CPU."""
+    import chip_smoke as cs
+    from sgtd_tpu.match.search import TRUNC_SCAN as JAX_TRUNC_SCAN
+
+    cfg, db, rep, queries = _reference_5k()
     res = [jax_localize(db, g, cfg) for g in queries]
     assert not any(int(r.truncated) & JAX_TRUNC_SCAN for r in res)
     frames = np.stack([np.asarray(r.frames) for r in res])
     votes = np.stack([np.asarray(r.votes) for r in res])
     got = {"rows": rep.num_rows, "sha256": cs.candidates_sha256(frames, votes)}
     assert got == cs.REFERENCE_5K
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("pair_lists", ["sel", "candidate_major"])
+def test_pair_lists_and_scores_equal_reference_5k(pair_lists):
+    """The float gates of the pair pass and of verification, on the
+    5,000-keyframe world's 32 queries: the candidates, their pair lists
+    (``extract_pairs`` by default, ``extract_pairs_by_frame`` with
+    ``sel_max_scan_slots=0``: pair_qidx, pair_row, pair_valid) and the
+    integer verification scores equal the reference's. A gate that rounded
+    another way than XLA:CPU's fused multiply-adds would add or drop a
+    pair, or move a score by a vote. About 80 s a case after the world's
+    70 s, on a CPU.
+
+    The reference's pair lists are taken from one program with the body of
+    its ``localize`` (descriptors, candidate search, verification), whose
+    candidates and scores must also be ``localize``'s own: XLA:CPU fuses
+    a gate's sums by the program around it, and ``candidate_search``
+    jitted without the verification behind it gives one of these queries
+    (the sixth) other probes than ``localize`` does."""
+    from sgtd_tpu.match.search import candidate_search as jax_candidate_search
+    from sgtd_tpu.match.verify import verify_candidates as jax_verify_candidates
+
+    cfg, jdb, _, queries = _reference_5k()
+    if pair_lists == "candidate_major":
+        cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=0))
+
+    @jax.jit
+    def reference(db, graph):
+        query = jax_build_descriptors(graph, cfg.desc, cfg.caps)
+        cand = jax_candidate_search(db, query, cfg.desc, cfg.search, cfg.caps)
+        return cand, jax_verify_candidates(db, query, cand, cfg.search).scores
+
+    tdb = interop.db_from_numpy(jdb, "cpu")
+    tcfg = P(cfg)
+    chunk = 8
+    n_pairs = 0
+    for i in range(0, len(queries), chunk):
+        graphs = interop.graph_from_numpy(_stack_np(queries[i : i + chunk]), "cpu")
+        got = search.candidate_search(tdb, build_descriptors(graphs, tcfg.desc, tcfg.caps),
+                                      tcfg.desc, tcfg.search, tcfg.caps)
+        res = localize(tdb, graphs, tcfg)
+        n_pairs += int(got.pair_valid.sum())
+        for k, graph in enumerate(queries[i : i + chunk]):
+            cand, scores = reference(jdb, graph)
+            want = jax_localize(jdb, graph, cfg)
+            order = np.argsort(-np.asarray(scores), kind="stable")
+            for f, mine in (("frames", cand.frames), ("votes", cand.votes), ("scores", scores)):
+                np.testing.assert_array_equal(np.asarray(mine)[order], np.asarray(getattr(want, f)),
+                                              err_msg=f"the reference program's {f}, query {i + k}")
+            for f in ("frames", "votes", "valid", "pair_valid", "pair_qidx", "pair_row", "truncated"):
+                np.testing.assert_array_equal(getattr(got, f)[k].numpy(), np.asarray(getattr(cand, f)),
+                                              err_msg=f"{f}, query {i + k}")
+            for f in ("scores", "frames", "votes", "found", "best_frame"):
+                np.testing.assert_array_equal(getattr(res, f)[k].numpy(), np.asarray(getattr(want, f)),
+                                              err_msg=f"{f}, query {i + k}")
+    assert n_pairs > 0
