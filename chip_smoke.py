@@ -9,8 +9,20 @@ Phases (any failure ends the run with a non-zero exit):
 1. Build: compiles the hand-written kernels (``sgtd_tpu_torch/csrc``) with
    nvcc, one process per source, and prints the seconds taken.
 2. Kernels against their plain PyTorch versions at the bench shapes, on
-   inputs seeded from NumPy: B1 and B2 must be equal, B3 equal except on
-   pairs whose float64 d^2 lies within 1e-3 of thr^2; B4 and B5 equal
+   inputs seeded from NumPy: B1 and B2 must be equal (B2 on the slots
+   below each query's total), B3 equal except on pairs whose float64 d^2
+   lies within 1e-3 of thr^2, each launched twice for the same bits. B2
+   also at the 5,000-keyframe chunk's shape (8 x 55,296 jobs -> 1,802,240
+   slots), at one query's, and where a tile-wise expansion can go wrong
+   (``check_expand_edges``: an ``l_max`` that is no multiple of 4 or of a
+   tile, a run of more empty jobs than a tile has slots, a job over many
+   tiles, heads on tile boundaries, all jobs empty, a total above
+   ``l_max``, 1, 3 and 8 channels), and with the offsets handed in. B3 also
+   at 400 and 50 candidates and where a count of several pairs a thread
+   can go wrong (``check_votes_edges``: a mask with holes, P 700, 513,
+   130, 3, 2, 1, H 1 and ``MAX_H``, every pair valid, none), with what
+   the inputs ask of its tile skip and its pairs-a-lane choice
+   (``votes_work``) and the pace of its loop. B4 and B5 equal
    except on rows whose kernel and plain picks lie within 1 ulp of each
    other (at most 0.1% of rows); B4 at 64, 160 and 4 problems of 1,024 x
    4,096 points (a chunk, the hard world's chunk, one query) and at
@@ -32,27 +44,36 @@ Phases (any failure ends the run with a non-zero exit):
    problems), each launched twice for the same bits. B8 equal at
    (399,104, 2) x 106,496 rows and at (9,775,363, 2) x 14,417,920, and on
    each table at L 1, 3 and 4,099, with an index vector off its 8-byte
-   boundary, and at W 3. B1-B3, B6: median times of kernel and plain
-   version over 20 synchronized runs each; B4, B5, B7, B8: CUDA-event
-   times (B8 and ``index_select`` in turns). Each kernel's time stands
+   boundary, and at W 3. Every kernel's ``ms`` is a CUDA-event time: for
+   B1-B3 and B6 of the kernel's body (the C entry point on inputs made
+   beforehand, ``body_ms``), beside the host-clocked median of 20
+   synchronized calls of the wrapper (``wrapper_ms``) and of the plain
+   version; for B4, B5, B7, B8 of the wrapper (B8 and ``index_select`` in
+   turns). Each kernel's time stands
    beside its bound on the card (bytes over 3.35 TB/s or float32
    operations over 67 TFLOP/s, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time; B5's record
    carries the map build's shape under ``map``, B8's the 14.4M-row scan
-   under ``scan``, B4's and B7's other shapes under ``shapes``. Then the
-   host cost of a call of each wrapper
+   under ``scan``, B2's, B3's, B4's and B7's other shapes under ``shapes``.
+   B3's bound is printed beside the floor of sums that may not contract
+   into FMAs. Then the host cost of a call of each wrapper
    (``host_us``: the host clock over 200 back-to-back calls on tiny
    inputs, one synchronize at the end, least of 7 rounds), beside
    ``index_select``'s and the two parts of B8's (output allocation,
    launch). With ``--baseline TREE`` (another tree of the port, e.g. the
    parent commit unpacked by ``git archive`` under ``build/``; the flag
    may be repeated) the host costs of the first such tree and this one
-   are taken in turns, a process a reading, and the B4, B7, B5 and B8
-   kernels of every built library are timed in turns on the same inputs
-   (B4 and B7 at 64, 160 and 4 problems; B8 on random rows and on runs of
-   consecutive rows), equal outputs required. ``--sass FILE`` writes the
-   built library's SASS there (``cuobjdump -sass``); ``--kernels-only``
-   stops here.
+   are taken in turns, a process a reading; B2's and B3's wrappers of
+   that tree and of this one are read in turns in this one process
+   (``wrapper_turns``); and
+   the B2, B3, B4, B7, B5 and B8 kernel bodies of every built library are
+   timed in turns on the same inputs (B2 at the bench shape, the
+   5,000-keyframe chunk's and one query's, also followed by one pass that
+   reads its output; B3 at 800, 400 and 50 candidates; B4 and B7 at 64,
+   160 and 4 problems; B8 on random rows and on runs of consecutive
+   rows), equal outputs required (B2: on valid slots). ``--sass FILE``
+   writes the built library's SASS there (``cuobjdump -sass``);
+   ``--kernels-only`` stops here.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
@@ -69,7 +90,9 @@ Phases (any failure ends the run with a non-zero exit):
    poses, every kernel launched. One chunk re-runs with B4/B5 patched to
    their plain versions and must give the same pick, refined and found,
    with poses within 5e-3 m and 1e-3 rad. Prints what B4's deferred argmin
-   meets on that chunk's real clouds (``rescan_share``), the refined share, the
+   meets on that chunk's real clouds (``rescan_share``), what B3's tile
+   skip and pairs-a-lane choice meet on every chunk's real candidates
+   (``warp_skip_share``, ``votes_work``), the refined share, the
    pose RMSE, the stage split of one chunk, map-covariance seconds and
    steady-state scans/s.
 5. The large map: the world of ``tools/scale_bench.py`` (seed 2027,
@@ -126,6 +149,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
+import inspect
 import json
 import os
 import re
@@ -233,14 +258,29 @@ def event_ms(fn, launches: int, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+def body_ms(entry: str, dev, *args, launches: int = 50) -> float:
+    """CUDA-event ms of one launch of the C entry point ``entry`` on inputs
+    made beforehand (``event_ms`` of ``launches`` back-to-back launches):
+    the kernel's body, without its wrapper's checks, allocations and the
+    tensor operations around the launch. Back-to-back launches on the same
+    buffers find in the L2 cache what fits there, as a caller that has just
+    made the inputs does."""
+    from sgtd_tpu_torch.ops import _build
+
+    return event_ms(lambda: _build.launch(entry, dev, *args), launches)
+
+
 def _modules():
     from sgtd_tpu_torch.ops import expand, gicp, nn, probe, verify
 
     return {"probe": probe, "expand": expand, "verify": verify, "nn": nn, "gicp": gicp}
 
 
-def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None) -> dict:
-    """One entry of the kernels' JSON record. The bound is the least time
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None,
+                  wrapper_ms=None) -> dict:
+    """One entry of the kernels' JSON record. ``ms`` is the kernel's time by
+    CUDA events; ``wrapper_ms``, where given, the host-clocked median of a
+    synchronized call of the wrapper. The bound is the least time
     the card could take for the call: ``nbytes`` (each input read once,
     each output written once) over the memory rate, or ``flops`` (float32
     operations these inputs need) over the float32 peak, whichever is
@@ -251,6 +291,7 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, flops, libr
         "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_flops), "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": library_ms,
+        **({} if wrapper_ms is None else {"wrapper_ms": wrapper_ms}),
     }
 
 
@@ -407,6 +448,10 @@ def host_costs(dev) -> dict:
         "gather_rows": lambda: probe.gather_rows(table, idx),
         "index_select": lambda: torch.index_select(table, 0, idx),
     }
+    calls["job_offsets"] = lambda: expand.job_offsets(length)
+    if "offsets" in inspect.signature(expand.expand_jobs).parameters:
+        offsets = expand.job_offsets(length)
+        calls["expand_jobs: offsets passed"] = lambda: expand.expand_jobs(length, payload, 16, offsets=offsets)
     if hasattr(_build, "launch"):
         out_rows = table.new_empty((16, 2))
         calls["gather_rows: new_empty"] = lambda: table.new_empty((16, 2))
@@ -472,6 +517,314 @@ def rescan_share(q: torch.Tensor, r: torch.Tensor, group: int = 16):
     return lane_hits / lane_all, warp_hits / warp_all
 
 
+def check_expand(name: str, length, payload, l_max: int):
+    """B2 against its plain version on one set of inputs: equal on the valid
+    slots (those below each query's total, capped at ``l_max``), the same
+    bits from a second launch on every slot, and from a call that is handed
+    the offsets. Returns (max |err|, valid slots)."""
+    from sgtd_tpu_torch.ops import expand
+
+    got = expand.expand_jobs(length, payload, l_max)
+    want = expand.expand_jobs_plain(length, payload, l_max)
+    total = length.sum(-1).clamp(max=l_max)
+    valid = torch.arange(l_max, device=length.device) < total[:, None]  # (B, L)
+    err = ((got - want).abs() * valid[:, None]).max().item()
+    if err != 0:
+        fail(f"{name} differs from its plain version on valid slots (max |err| {err})")
+    del want, valid
+    if not torch.equal(got, expand.expand_jobs(length, payload, l_max)):
+        fail(f"{name}: two launches on the same input differ in their bits")
+    if not torch.equal(got, expand.expand_jobs(length, payload, l_max, offsets=expand.job_offsets(length))):
+        fail(f"{name}: the call that is handed its offsets differs")
+    return err, int(total.sum())
+
+
+def expand_body_ms(dev, length, payload, l_max: int, launches: int = 50) -> float:
+    """B2's kernel body by CUDA events, the offsets made beforehand."""
+    from sgtd_tpu_torch.ops import expand
+
+    b, nj, c = payload.shape
+    offsets, payload = expand.job_offsets(length).contiguous(), payload.contiguous()
+    out = payload.new_empty((b, c, l_max))
+    return body_ms("sgtd_expand_jobs", dev, offsets.data_ptr(), payload.data_ptr(), out.data_ptr(),
+                   b, nj, c, l_max, launches=launches)
+
+
+EXPAND_JOBS, EXPAND_CHANNELS = 2048 * 27, 5  # 2,048 descriptors x 27 probes; row base, three sides, descriptor
+
+
+def expand_inputs(rng, b: int, l_max: int, dev):
+    """(length, payload) of ``b`` queries for B2 at the paths' job count and
+    channels. At the bench scan (98,304 slots) 0.7 of the jobs are empty
+    and the others geometric with mean 1 / 0.3; at a larger ``l_max`` (the
+    large map's deep buckets) half are empty and the mean fills ``l_max``,
+    so that some queries overflow it. Payload of 20 bits, channel 0 of
+    either sign."""
+    nj, c = EXPAND_JOBS, EXPAND_CHANNELS
+    empty, mean_len = (0.7, 1.0) if l_max <= 98304 else (0.5, l_max / nj)
+    length = np.where(rng.uniform(size=(b, nj)) < empty, 0, rng.geometric((1 - empty) / mean_len, (b, nj)))
+    payload = rng.integers(0, 1 << 20, (b, nj, c), dtype=np.int32)
+    payload[..., 0] -= 1 << 19
+    return torch.from_numpy(length.astype(np.int32)).to(dev), torch.from_numpy(payload).to(dev)
+
+
+def check_expand_edges(dev, card: str) -> dict:
+    """B2 against its plain version (``check_expand``) at the other shapes
+    the paths give it and where a tile-wise expansion can go wrong: the
+    5,000-keyframe chunk (8 x 55,296 jobs -> 1,802,240 slots) and one query
+    (1 -> 98,304), both timed; an ``l_max`` that is no multiple of 4 or of
+    a tile; a run of more empty jobs than a tile has slots; a job that
+    spans many tiles; heads on tile boundaries; all jobs empty; a total
+    far above ``l_max``; 1, 3 and 8 channels. Returns the timed shapes'
+    {ms, bound_ms, bound_by}."""
+    rng = np.random.default_rng(SEED + 2)
+    nj, c = EXPAND_JOBS, EXPAND_CHANNELS
+    shapes = {}
+    for b, l_max in ((SCALE_CHUNK, 1802240), (1, 98304)):
+        length, payload = expand_inputs(rng, b, l_max, dev)
+        name = f"({b}, {nj} jobs, {c} ch) -> {l_max} slots"
+        _, n_valid = check_expand(f"B2 expand_jobs {name}", length, payload, l_max)
+        ms = expand_body_ms(dev, length, payload, l_max, 20)
+        t_bytes = 4 * (b * nj * (1 + c) + n_valid * c) / HBM_BYTES_S * 1e3
+        log(f"B2 expand_jobs {name}: equal on valid slots ({n_valid} of {b * l_max}; totals "
+            f"{int(length.sum(-1).min())}-{int(length.sum(-1).max())}), same bits twice; kernel body {ms:.4f} ms "
+            f"(CUDA events), bound {t_bytes:.5f} ms by bytes [{card}]")
+        shapes[f"B {b} L {l_max}"] = {"ms": ms, "bound_ms": t_bytes, "bound_by": "bytes"}
+        del length, payload
+
+    def lengths(*runs):
+        """One query's lengths from (count, length) runs."""
+        return np.concatenate([np.full(n, v, np.int64) for n, v in runs])
+
+    mixed = rng.choice([0, 0, 512, 1024, 2048], 64)
+    cases = [
+        ("l_max 10,007", np.where(rng.uniform(size=(3, 5000)) < 0.6, 0, rng.geometric(0.2, (3, 5000))), 10007, 5),
+        ("l_max 3", np.full((2, 9), 1), 3, 5),
+        ("5,000 empty jobs in a row", np.stack([lengths((50, 3), (5000, 0), (300, 7), (3000, 0), (50, 40)),
+                                                lengths((5000, 0), (350, 9), (3000, 0), (50, 1))]), 8192, 5),
+        ("a job of 10,000 slots", np.stack([lengths((10, 5), (1, 10000), (20, 0), (100, 6)),
+                                            lengths((1, 10000), (130, 4))]), 12288, 5),
+        ("heads on tile boundaries", np.stack([mixed, np.roll(mixed, 7), np.full(64, 512)]), 32768, 5),
+        ("all jobs empty", np.zeros((2, 700)), 4096, 5),
+        ("a total far above l_max", np.full((2, 3000), 50), 4096, 5),
+        ("1 channel", rng.geometric(0.3, (2, 3000)), 8192, 1),
+        ("3 channels", rng.geometric(0.3, (2, 3000)), 8190, 3),
+        ("8 channels", rng.geometric(0.3, (2, 3000)), 8192, 8),
+    ]
+    for name, length, l_max, ch in cases:
+        length = torch.from_numpy(np.asarray(length).astype(np.int32)).to(dev)
+        payload = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, length.shape + (ch,), dtype=np.int32)).to(dev)
+        _, n_valid = check_expand(f"B2 expand_jobs edge [{name}]", length, payload, l_max)
+        log(f"   B2 expand_jobs edge [{name}] {tuple(length.shape)} jobs, {ch} ch -> {l_max} slots: equal on its "
+            f"{n_valid} valid slots, same bits twice")
+    return shapes
+
+
+def votes_problem(rng, n: int, h: int, p: int, mask: str, dev):
+    """The arguments of ``hypothesis_votes`` for ``n`` candidates: random
+    rotations and translations, a quarter of each candidate's pairs planted
+    near hypothesis 0, and the valid pairs a ``prefix`` of a length drawn
+    uniformly in 0-p, a random half (``holes``), ``all`` or ``none``."""
+    quat = rng.normal(size=(n * h, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    w, x, y, z = quat.T
+    rot = np.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        axis=-1,
+    ).reshape(n, h, 3, 3).astype(np.float32)
+    t = rng.normal(0, 5, (n, h, 3)).astype(np.float32)
+    vq = rng.normal(0, 20, (n, p, 3, 3)).astype(np.float32)
+    vdb = rng.normal(0, 20, (n, p, 3, 3)).astype(np.float32)
+    moved = np.einsum("nij,npkj->npki", rot[:, 0], vq[:, : p // 4]) + t[:, 0, None, None]
+    vdb[:, : p // 4] = moved + rng.normal(0, 1.5, moved.shape)
+    if mask == "prefix":
+        pair_valid = np.arange(p)[None] < rng.integers(0, p + 1, (n, 1))
+    elif mask == "holes":
+        pair_valid = rng.uniform(size=(n, p)) < 0.5
+    else:
+        pair_valid = np.full((n, p), mask == "all")
+    return [torch.from_numpy(a).to(dev) for a in (rot, t, vq, vdb, pair_valid)]
+
+
+def votes_d2(args) -> torch.Tensor:
+    """(N, H, P, 3) float64 squared distances of every hypothesis' moved
+    query vertices to the DB vertices."""
+    r64, t64, q64, d64 = (a.double() for a in args[:4])
+    return ((torch.einsum("nhij,npaj->nhpai", r64, q64) + t64[:, :, None, None] - d64[:, None]) ** 2).sum(-1)
+
+
+def votes_bytes(args) -> int:
+    """Bytes B3 must move for these inputs: the rotations, translations and
+    the mask read once, the 72 bytes of vertices of every valid pair, and
+    the votes written once."""
+    rot, t, _, _, valid = args
+    return rot.numel() * 4 + t.numel() * 4 + valid.numel() + 72 * int(valid.sum()) + rot.shape[0] * rot.shape[1] * 4
+
+
+def votes_work(args, thr: float, d2=None) -> dict:
+    """What these inputs ask of B3. The kernel walks a candidate's pairs
+    by warp tiles (``32 * verify.PAIRS_PER_THREAD`` consecutive pairs),
+    skips a tile without a valid pair, and in a tile gives a lane as many
+    pairs as cover it up to its last valid one: ``fill`` is the share of
+    the lane slots so taken that hold a valid pair (``fill_whole_tiles``
+    what it would be with whole tiles). ``tile_trips`` are the (candidate,
+    tile, hypothesis) trips over tiles with a valid pair, ``second`` and
+    ``third`` the share of them in which, by the float64 distances, some
+    pair still lies within ``thr`` after one and two vertices: what a
+    kernel that ended a hypothesis vertex by vertex could leave out."""
+    from sgtd_tpu_torch.ops import verify
+
+    valid = args[4]
+    n, p = valid.shape
+    tile = 32 * verify.PAIRS_PER_THREAD
+    padded = torch.nn.functional.pad(valid, (0, -p % tile)).view(n, -1, tile)
+    extent = (padded * torch.arange(1, tile + 1, device=valid.device)).amax(-1)  # (N, tiles)
+    slots = int((32 * ((extent + 31) // 32)).sum())
+    busy = int((extent > 0).sum())
+    ok = ((votes_d2(args) if d2 is None else d2) < thr * thr) & valid[:, None, :, None]  # (N, H, P, 3)
+    in1 = ok[..., 0]
+    in2 = in1 & ok[..., 1]
+    h = ok.shape[1]
+    tiles = lambda x: torch.nn.functional.pad(x, (0, -p % tile)).unflatten(-1, (-1, tile)).any(-1)
+    trips = busy * h
+    return {
+        "fill": int(valid.sum()) / max(slots, 1),
+        "fill_whole_tiles": int(valid.sum()) / max(busy * tile, 1),
+        "tile_trips": trips,
+        "second": int(tiles(in1).sum()) / max(trips, 1),
+        "third": int(tiles(in2).sum()) / max(trips, 1),
+    }
+
+
+def check_votes(name: str, args, thr: float):
+    """B3 against its plain version on one set of inputs: votes may differ
+    only by pairs whose float64 d^2 lies within 1e-3 of thr^2 (they may
+    round either way), and a second launch gives the same bits. Returns
+    (max |err|, borderline pairs, ``votes_work`` of the inputs)."""
+    from sgtd_tpu_torch.ops import verify
+
+    got = verify.hypothesis_votes(*args, thr)
+    want = verify.hypothesis_votes_plain(*args, thr)
+    d2 = votes_d2(args)
+    near = ((d2 - thr * thr).abs() < 1e-3).any(-1) & args[4][:, None]
+    work = votes_work(args, thr, d2)
+    del d2
+    n_near = int(near.sum())
+    diff = (got - want).abs()
+    err = diff.max().item() if diff.numel() else 0
+    if got.shape != want.shape or got.dtype != torch.int32 or bool((diff > near.sum(-1)).any()):
+        fail(f"{name} differs beyond its {n_near} borderline pairs (max |err| {err})")
+    if not torch.equal(got, verify.hypothesis_votes(*args, thr)):
+        fail(f"{name}: two launches on the same input differ in their bits")
+    return err, n_near, work
+
+
+def votes_body_ms(dev, args, thr: float, launches: int = 50) -> float:
+    """B3's kernel body by CUDA events."""
+    from sgtd_tpu_torch.ops import verify
+
+    args = [a.contiguous() for a in args]
+    n, h = args[0].shape[:2]
+    out = torch.empty((n, h), dtype=torch.int32, device=dev)
+    return body_ms("sgtd_hypothesis_votes", dev, *(a.data_ptr() for a in args), out.data_ptr(),
+                   n, h, args[2].shape[1], verify._thr2(thr), launches=launches)
+
+
+def warp_skip_share(pair_valid: torch.Tensor):
+    """What B3's warp skip meets on a (N, P) mask: the share of (candidate,
+    warp tile) pairs in which no pair is valid, a warp tile being the
+    ``32 * verify.PAIRS_PER_THREAD`` consecutive pairs a warp takes at a
+    time; then the median and the largest count of valid pairs a
+    candidate."""
+    from sgtd_tpu_torch.ops import verify
+
+    tile = 32 * verify.PAIRS_PER_THREAD
+    n, p = pair_valid.shape
+    padded = torch.nn.functional.pad(pair_valid, (0, -p % tile))
+    busy = padded.view(n, -1, tile).any(-1)
+    per_cand = pair_valid.sum(-1)
+    return 1.0 - float(busy.float().mean()), float(per_cand.float().median()), int(per_cand.max())
+
+
+def log_votes_call(name: str, call, dev, card: str) -> None:
+    """What one recorded call of ``hypothesis_votes`` on a path's real
+    candidates asks of B3 (``warp_skip_share``, ``votes_work``), and the
+    kernel body's time on those inputs."""
+    from sgtd_tpu_torch.ops import verify
+
+    args, thr = call.args[:5], call.args[5]
+    pair_valid = args[4]
+    skip, med, most = warp_skip_share(pair_valid)
+    work = votes_work(args, thr)
+    log(f"B3 on {name}'s candidates {tuple(pair_valid.shape)}, {args[0].shape[1]} hypotheses: {skip:.4f} of the "
+        f"warps' tiles of {32 * verify.PAIRS_PER_THREAD} pairs hold no valid pair; valid pairs a candidate: median "
+        f"{med:.0f}, most {most}, {int((pair_valid.sum(-1) == 0).sum())} candidates with none; {work['fill']:.4f} of "
+        f"the lane slots taken hold a valid pair ({work['fill_whole_tiles']:.4f} with whole tiles); of the "
+        f"{work['tile_trips']} (tile, hypothesis) trips {work['second']:.4f} have a pair within thr after the first "
+        f"vertex and {work['third']:.4f} after the second; kernel body on these inputs "
+        f"{votes_body_ms(dev, args, thr):.4f} ms (CUDA events) [{card}]")
+
+
+def check_votes_edges(dev, card: str) -> dict:
+    """B3 against its plain version (``check_votes``) at the other shapes
+    the paths give it and where a count of several pairs a thread can go
+    wrong: 400 candidates (a 5,000-keyframe chunk) and 50 (one query), both
+    timed; a mask with holes; P no multiple of the pairs a block takes at a
+    time, of the pairs a thread holds, and below them; one hypothesis and
+    ``MAX_H``; every pair valid and every pair invalid. Returns the timed
+    shapes' {ms, bound_ms, bound_by}."""
+    from sgtd_tpu_torch.ops import verify
+
+    rng = np.random.default_rng(SEED + 3)
+    thr, shapes = 3.0, {}
+    cases = [(f"{n} candidates", n, 50, 512, "prefix") for n in (400, 50)]
+    cases += [("a mask with holes", 50, 50, 512, "holes"), ("P 700", 20, 50, 700, "prefix"),
+              ("P 700 with holes", 20, 50, 700, "holes"), ("P 513", 21, 50, 513, "holes"),
+              ("P 130", 21, 50, 130, "prefix"), ("P 3", 7, 50, 3, "all"), ("P 2", 7, 50, 2, "holes"),
+              ("P 1", 7, 50, 1, "all"), ("H 1", 33, 1, 512, "prefix"),
+              (f"H {verify.MAX_H}", 20, verify.MAX_H, 256, "holes"), ("every pair valid", 30, 50, 512, "all"),
+              ("every pair invalid", 30, 50, 512, "none")]
+    for name, n, h, p, mask in cases:
+        args = votes_problem(rng, n, h, p, mask, dev)
+        err, n_near, work = check_votes(f"B3 hypothesis_votes edge [{name}]", args, thr)
+        if mask == "none" and bool(verify.hypothesis_votes(*args, thr).any()):
+            fail("B3 hypothesis_votes edge [every pair invalid]: votes must be zero")
+        line = (f"   B3 hypothesis_votes edge [{name}] ({n} cand, {h} hyp, {p} pairs, mask {mask}): max |err| {err} "
+                f"({n_near} borderline pairs), same bits twice")
+        if name.endswith("candidates"):
+            ms = votes_body_ms(dev, args, thr)
+            t_flops = int(args[4].sum()) * h * 3 * 27 / F32_FLOP_S * 1e3
+            t_bytes = votes_bytes(args) / HBM_BYTES_S * 1e3
+            by = "bytes" if t_bytes >= t_flops else "operations"
+            shapes[f"N {n}"] = {"ms": ms, "bound_ms": max(t_bytes, t_flops), "bound_by": by}
+            line += f"; kernel body {ms:.4f} ms (CUDA events), bound {max(t_bytes, t_flops):.5f} ms by {by} [{card}]"
+        log(line)
+        del args
+
+    # The loop's pace: every pair valid, a threshold that every pair meets
+    # under every hypothesis (the work does not depend on it; the votes are
+    # then known), and as many candidates as give each SM the same number
+    # of blocks, so that no SM waits for another. A candidate's warps split
+    # its hypotheses over the SM's four schedulers: each makes (P / tile) x
+    # ceil(H / 4) trips of the (tile, hypothesis) loop a candidate.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, h, p, wide_thr = 6 * sms, 50, 512, 1e4
+    args = votes_problem(rng, n, h, p, "all", dev)
+    if not bool((verify.hypothesis_votes(*args, wide_thr) == p).all()):
+        fail("B3 hypothesis_votes [every pair an inlier]: every vote must be P")
+    ms = votes_body_ms(dev, args, wide_thr, 20)
+    clock = clocks_under_load(lambda: verify.hypothesis_votes(*args, wide_thr))
+    trips = n // sms * (p // (32 * verify.PAIRS_PER_THREAD)) * -(-h // 4)
+    cycles = ms * 1e-3 * float(clock.split()[0]) * 1e6 / trips
+    log(f"   B3 hypothesis_votes [every pair an inlier of every hypothesis] ({n} cand, {h} hyp, {p} pairs, thr "
+        f"{wide_thr:g}): kernel body {ms:.4f} ms; a scheduler makes {trips} trips of the (tile, hypothesis) loop, "
+        f"{cycles:.0f} cycles a trip at the SM clock under the load ({clock}) [{card}]")
+    shapes["every pair an inlier"] = {"ms": ms, "cycles_a_trip": cycles}
+    return shapes
+
+
 def check_kernels(dev, card: str):
     """Phase 2: each kernel against its plain version at the bench shapes."""
     from sgtd_tpu_torch.ops import expand, probe, verify
@@ -488,14 +841,18 @@ def check_kernels(dev, card: str):
     err = (got - want).abs().max().item()
     if err != 0:
         fail(f"B1 frame_votes differs from its plain version (max |err| {err})")
-    ms, plain_ms = median_times(
+    wrapper_ms, plain_ms = median_times(
         lambda: probe.frame_votes(hit, frame, f_pad),
         lambda: probe.frame_votes_plain(hit, frame, f_pad),
     )
-    log(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+    counts = frame.new_zeros((b, f_pad))  # the body adds into zeroed counts; here it only piles up
+    ms = body_ms("sgtd_frame_votes", dev, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
+    log(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}: equal; kernel body {ms:.4f} ms (CUDA events), wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized calls) [{card}]")
     records.append(kernel_record(
         "frame_votes", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:67", err, ms, plain_ms,
-        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=scatter_add_ms(hit, frame, f_pad)))
+        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=scatter_add_ms(hit, frame, f_pad),
+        wrapper_ms=wrapper_ms))
     log_bound(records[-1])
 
     # B2 expand_jobs: 16 x 55,296 jobs (2048 descriptors x 27 probes), 5
@@ -507,69 +864,59 @@ def check_kernels(dev, card: str):
     payload = rng.integers(0, 1 << 20, (b, nj, c), dtype=np.int32)
     payload[..., 0] -= 1 << 19
     payload = torch.from_numpy(payload).to(dev)
-    got = expand.expand_jobs(length, payload, l_max)
-    want = expand.expand_jobs_plain(length, payload, l_max)
-    total = length.sum(-1).clamp(max=l_max)
-    valid = torch.arange(l_max, device=dev) < total[:, None]  # (B, L)
-    err = ((got - want).abs() * valid[:, None]).max().item()
-    if err != 0:
-        fail(f"B2 expand_jobs differs from its plain version on valid slots (max |err| {err})")
-    ms, plain_ms = median_times(
+    shape = f"({b}, {nj} jobs, {c} ch) -> {l_max} slots"
+    err, n_valid = check_expand(f"B2 expand_jobs {shape}", length, payload, l_max)
+    wrapper_ms, plain_ms = median_times(
         lambda: expand.expand_jobs(length, payload, l_max),
         lambda: expand.expand_jobs_plain(length, payload, l_max),
     )
-    log(f"B2 expand_jobs ({b}, {nj} jobs, {c} ch) -> {l_max} slots: equal on valid slots; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+    ms = expand_body_ms(dev, length, payload, l_max)
+    log(f"B2 expand_jobs {shape}: equal on valid slots, same bits twice; kernel body {ms:.4f} ms (CUDA events, "
+        f"offsets made beforehand), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized "
+        f"calls) [{card}]")
     # Bytes: lengths and payload read once, the valid slots written once.
     records.append(kernel_record(
         "expand_jobs", "expand.cu", "sgtd_tpu/ops/pallas_expand.py:73", err, ms, plain_ms,
-        nbytes=4 * (b * nj * (1 + c) + int(total.sum()) * c), flops=int(total.sum()) * c))
+        nbytes=4 * (b * nj * (1 + c) + n_valid * c), flops=n_valid * c, wrapper_ms=wrapper_ms))
     log_bound(records[-1])
+    del length, payload
+    records[-1]["shapes"] = check_expand_edges(dev, card)
 
     # B3 hypothesis_votes: 16 x 50 candidates, 50 hypotheses, 512 pairs;
-    # a quarter of each candidate's pairs planted near hypothesis 0.
+    # a quarter of each candidate's pairs planted near hypothesis 0; the
+    # valid pairs a prefix of a length drawn uniformly in 0-512.
     n, h, p, thr = CHUNK * 50, 50, 512, 3.0
-    quat = rng.normal(size=(n * h, 4))
-    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
-    w, x, y, z = quat.T
-    rot = np.stack(
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-        axis=-1,
-    ).reshape(n, h, 3, 3).astype(np.float32)
-    t = rng.normal(0, 5, (n, h, 3)).astype(np.float32)
-    vq = rng.normal(0, 20, (n, p, 3, 3)).astype(np.float32)
-    vdb = rng.normal(0, 20, (n, p, 3, 3)).astype(np.float32)
-    moved = np.einsum("nij,npkj->npki", rot[:, 0], vq[:, : p // 4]) + t[:, 0, None, None]
-    vdb[:, : p // 4] = moved + rng.normal(0, 1.5, moved.shape)
-    pair_valid = np.arange(p)[None] < rng.integers(0, p + 1, (n, 1))
-    args = [torch.from_numpy(a).to(dev) for a in (rot, t, vq, vdb, pair_valid)]
-    got = verify.hypothesis_votes(*args, thr)
-    want = verify.hypothesis_votes_plain(*args, thr)
-    # Pairs whose float64 d^2 lies within 1e-3 of thr^2 may round either way.
-    r64, t64, q64, d64 = (a.double() for a in args[:4])
-    d2 = ((torch.einsum("nhij,npaj->nhpai", r64, q64) + t64[:, :, None, None]
-           - d64[:, None]) ** 2).sum(-1)
-    near = ((d2 - thr * thr).abs() < 1e-3).any(-1) & args[4][:, None]
-    n_near = int(near.sum())
-    diff = (got - want).abs()
-    err = diff.max().item()
-    if bool((diff > near.sum(-1)).any()):
-        fail(f"B3 hypothesis_votes differs beyond its {n_near} borderline pairs (max |err| {err})")
-    ms, plain_ms = median_times(
+    args = votes_problem(rng, n, h, p, "prefix", dev)
+    shape = f"({n} cand, {h} hyp, {p} pairs)"
+    err, n_near, work = check_votes(f"B3 hypothesis_votes {shape}", args, thr)
+    wrapper_ms, plain_ms = median_times(
         lambda: verify.hypothesis_votes(*args, thr),
         lambda: verify.hypothesis_votes_plain(*args, thr),
     )
-    log(f"B3 hypothesis_votes ({n} cand, {h} hyp, {p} pairs): max |err| {err} "
-        f"({n_near} borderline pairs); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+    ms = votes_body_ms(dev, args, thr)
+    skip, _, _ = warp_skip_share(args[4])
+    log(f"B3 hypothesis_votes {shape}: max |err| {err} ({n_near} borderline pairs), same bits twice; kernel body "
+        f"{ms:.4f} ms (CUDA events), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized "
+        f"calls) [{card}]")
+    log(f"   what these inputs ask: {skip:.4f} of the warps' tiles hold no valid pair; {work['fill']:.4f} of the lane "
+        f"slots taken in the others hold a valid pair ({work['fill_whole_tiles']:.4f} with whole tiles); of the "
+        f"{work['tile_trips']} (tile, hypothesis) trips {work['second']:.4f} have a pair within thr after the first "
+        f"vertex and {work['third']:.4f} after the second")
     # Operations: per (hypothesis, valid pair) three vertices, each a
     # rotation (15), a translation (3), a difference (3), d^2 (5), a test.
+    # The table's float32 peak counts an FMA as two operations, and these
+    # sums may not contract into FMAs (they must round as the plain version
+    # does): the kernel's own floor, an instruction an operation, is twice
+    # the bound.
+    flops = int(args[4].sum()) * h * 3 * 27
     records.append(kernel_record(
         "hypothesis_votes", "verify.cu", "sgtd_tpu/ops/pallas_verify.py:83", err, ms, plain_ms,
-        nbytes=sum(a.numel() * a.element_size() for a in args) + n * h * 4,
-        flops=int(args[4].sum()) * h * 3 * 27))
+        nbytes=votes_bytes(args), flops=flops, wrapper_ms=wrapper_ms))
     log_bound(records[-1])
+    log(f"   hypothesis_votes: {2 * flops / F32_FLOP_S * 1e3:.5f} ms is the floor of sums that may not contract "
+        f"into FMAs (half the table's rate)")
+    del args
+    records[-1]["shapes"] = check_votes_edges(dev, card)
 
     # B4 nn1 at the rerank's shapes, 1,024 source x 4,096 target points: 64
     # problems (a chunk of 16 queries x 4 candidates: the record's shape),
@@ -667,21 +1014,23 @@ def check_kernels(dev, card: str):
         if err != 0:
             fail(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad} differs from its plain version "
                  f"(max |err| {err})")
-        ms, plain_ms = median_times(
+        wrapper_ms, plain_ms = median_times(
             lambda: probe.frame_votes_wide(hit, frame, f_pad),
             lambda: probe.frame_votes_wide_plain(hit, frame, f_pad),
         )
-        log(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad}: equal; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{card}]")
+        counts = frame.new_zeros((b, f_pad))
+        ms = body_ms("sgtd_frame_votes_wide", dev, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
+        log(f"B6 frame_votes_wide ({b}, {l}) f_pad {f_pad}: equal; kernel body {ms:.4f} ms (CUDA events), wrapper "
+            f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized calls) [{card}]")
         errs.append(err)
-        times.append((ms, plain_ms, scatter_add_ms(hit, frame, f_pad)))
+        times.append((ms, plain_ms, scatter_add_ms(hit, frame, f_pad), wrapper_ms))
     # The record carries the 5,000-keyframe shape, the one phase 5 runs.
     b, l, f_pad = SCALE_CHUNK, 1802240, 5000
     records.append(kernel_record(
         "frame_votes_wide", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:145", max(errs), *times[0][:2],
-        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=times[0][2]))
+        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=times[0][2], wrapper_ms=times[0][3]))
     log_bound(records[-1])
-    del hit, frame
+    del hit, frame, counts
     records.extend(check_fused_kernels(dev, card, rng))
     return records
 
@@ -888,6 +1237,46 @@ def library_of(tree: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
+def wrapper_turns(dev, card: str, tree: str) -> None:
+    """Host cost of B2's and B3's wrappers, ``tree``'s and this tree's, read
+    in this one process in turns (old, new, new, old; the least of each
+    one's two ``host_us`` readings). ``tree``'s ``ops/expand.py`` and
+    ``ops/verify.py`` are loaded under other module names; they launch
+    through this tree's library, which on these tiny inputs costs the host
+    the same."""
+    from sgtd_tpu_torch.ops import expand, verify
+
+    def load(name):
+        path = os.path.join(tree, "sgtd_tpu_torch", "ops", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"_baseline_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    old_expand, old_verify = load("expand"), load("verify")
+    length = torch.ones((1, 4), dtype=torch.int32, device=dev)
+    payload = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
+    offsets = expand.job_offsets(length)
+    rot = torch.eye(3, device=dev).expand(1, 2, 3, 3).contiguous()
+    t_h, verts = torch.zeros((1, 2, 3), device=dev), torch.zeros((1, 4, 3, 3), device=dev)
+    ones4 = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    calls = {
+        f"expand_jobs, {tree}": lambda: old_expand.expand_jobs(length, payload, 16),
+        "expand_jobs, this tree": lambda: expand.expand_jobs(length, payload, 16),
+        "expand_jobs, this tree, offsets passed": lambda: expand.expand_jobs(length, payload, 16, offsets=offsets),
+        "job_offsets": lambda: expand.job_offsets(length),
+        f"hypothesis_votes, {tree}": lambda: old_verify.hypothesis_votes(rot, t_h, verts, verts, ones4, 3.0),
+        "hypothesis_votes, this tree": lambda: verify.hypothesis_votes(rot, t_h, verts, verts, ones4, 3.0),
+    }
+    names = list(calls)
+    readings = {name: [] for name in names}
+    for name in names + names[::-1]:
+        readings[name].append(host_us(calls[name]))
+    log("   host cost in one process, in turns, us a call (least of each one's two readings): "
+        + ", ".join(f"{name} {min(r):.2f} {[round(x, 2) for x in r]}" for name, r in readings.items())
+        + f" [{card}]")
+
+
 def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> None:
     """With ``--baseline TREE`` (another tree of the port, e.g. the parent
     commit unpacked by ``git archive`` under ``build/``; the flag may be
@@ -900,13 +1289,13 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
     outputs printed)."""
     import ctypes
 
-    from sgtd_tpu_torch.ops import _build, gicp
+    from sgtd_tpu_torch.ops import _build, expand, gicp, verify
 
     here = str(_build.CSRC.parents[1])
     paths = [library_of(t) for t in trees]
     for tree, path in zip(trees, paths):
         usage = [u.split("_cu_", 1)[-1] for u in ptxas_usage(open(os.path.splitext(path)[0] + ".log").read())
-                 if "nn1" in u or "linearize" in u]
+                 if any(k in u for k in ("nn1", "linearize", "expand", "hypothesis"))]
         log(f"   ptxas, {tree}: " + " | ".join(usage))
     if with_host_costs:
         runs = [baseline_run(t) for t in (trees[0], here, here, trees[0])]
@@ -917,7 +1306,8 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
 
     def bind(path):
         lib = ctypes.CDLL(path)
-        for name in ("sgtd_nn1", "sgtd_linearize_gicp", "sgtd_knn", "sgtd_gather_rows"):
+        for name in ("sgtd_nn1", "sgtd_linearize_gicp", "sgtd_knn", "sgtd_gather_rows", "sgtd_expand_jobs",
+                     "sgtd_hypothesis_votes"):
             getattr(lib, name).argtypes = _build.SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         return lib
@@ -928,6 +1318,52 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(SEED + 1)
     fmt = lambda ms: ", ".join(f"{name} {t:.4f} ms" for name, t in zip(names, ms))
+
+    wrapper_turns(dev, card, trees[0])
+    rng_b23 = np.random.default_rng(SEED + 4)  # B2's and B3's own, so that the others' inputs stay what they were
+
+    # B2 at the bench shape, the 5,000-keyframe chunk's and one query's:
+    # equal on the valid slots.
+    nj, c = EXPAND_JOBS, EXPAND_CHANNELS
+    for b, l_max in ((CHUNK, 98304), (SCALE_CHUNK, 1802240), (1, 98304)):
+        length, payload = expand_inputs(rng_b23, b, l_max, dev)
+        offsets = expand.job_offsets(length).contiguous()
+        valid = torch.arange(l_max, device=dev) < offsets[:, -1:]  # (B, L)
+        outs = [torch.empty((b, c, l_max), dtype=torch.int32, device=dev) for _ in libs]
+        run = lambda lib, o: lib.sgtd_expand_jobs(offsets.data_ptr(), payload.data_ptr(), o.data_ptr(),
+                                                  b, nj, c, l_max, stream())
+        if any(run(lib, o) for lib, o in zip(libs, outs)):
+            fail(f"baseline compare: B2 expand_jobs ({b}, {l_max}) failed to launch")
+        for name, o in zip(names, outs):
+            if bool(((o != outs[-1]) & valid[:, None]).any()):
+                fail(f"baseline compare: B2 expand_jobs ({b}, {l_max}): {name} differs from this tree on valid slots")
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 20)
+        log(f"   B2 expand_jobs ({b}, {nj} jobs, {c} ch) -> {l_max} slots ({int(valid.sum())} valid), kernel bodies "
+            f"in turns, equal on valid slots: {fmt(ms)} (CUDA events) [{card}]")
+        # The caller reads the output at once: the body and then one pass
+        # that reads all of it, so that a store which leaves less of the
+        # output in the L2 cache shows what it costs the reader.
+        scratch = torch.empty_like(outs[0])
+        ms = turns_ms_of([lambda lib=lib, o=o: (run(lib, o), torch.add(o, 1, out=scratch))
+                          for lib, o in zip(libs, outs)], 20)
+        log(f"      each followed by one elementwise pass over its output (torch.add): {fmt(ms)}")
+        del length, payload, offsets, valid, outs, scratch
+
+    # B3 at a chunk's 800 candidates, a 5,000-keyframe chunk's 400 and one
+    # query's 50: equal bits. The chunk also under a threshold that every
+    # pair meets (1e4 m), where no hypothesis ends before its third vertex.
+    for n, thr in ((CHUNK * 50, 3.0), (CHUNK * 50, 1e4), (SCALE_CHUNK * 50, 3.0), (50, 3.0)):
+        h, p = 50, 512
+        args = [a.contiguous() for a in votes_problem(rng_b23, n, h, p, "prefix", dev)]
+        outs = [torch.empty((n, h), dtype=torch.int32, device=dev) for _ in libs]
+        run = lambda lib, o: lib.sgtd_hypothesis_votes(*(a.data_ptr() for a in args), o.data_ptr(), n, h, p,
+                                                       verify._thr2(thr), stream())
+        if any(run(lib, o) for lib, o in zip(libs, outs)) or not all(torch.equal(o, outs[-1]) for o in outs):
+            fail(f"baseline compare: B3 hypothesis_votes at {n} candidates differs between the libraries")
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 50)
+        log(f"   B3 hypothesis_votes ({n} cand, {h} hyp, {p} pairs, thr {thr:g}), kernel bodies in turns, equal "
+            f"bits: {fmt(ms)} (CUDA events) [{card}]")
+        del args, outs
 
     # B4 and B7 at a chunk's 64 problems, the hard world's 160 and one query's 4.
     for p in (CHUNK * RERANK_K, CHUNK * HARD_RERANK_K, RERANK_K):
@@ -1254,6 +1690,16 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
             f"references; some lane of a warp's 32 queries sees it in {warp:.4f} of them")
     del seen
 
+    # What B3's warp skip meets on every chunk's real candidates.
+    from sgtd_tpu_torch.ops import verify as verify_ops
+
+    with mock.patch.object(verify_ops, "hypothesis_votes", wraps=verify_ops.hypothesis_votes) as seen:
+        for q, s in zip(chunks, sl):
+            refined_stages(db, q, q_clouds[s], q_masks[s], map_clouds, map_masks, map_covs, cfg, RERANK_K)
+    for i, call in enumerate(seen.call_args_list):
+        log_votes_call(f"chunk {i}", call, dev, card)
+    del seen
+
     splits = [refined_stages(*args)[2] for _ in range(3)]
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
     log("refined chunk stage split, ms (median of 3, synchronized per stage): "
@@ -1495,6 +1941,14 @@ def large_map(dev, card: str, num_map: int) -> int:
     if num_map == 5000 and (report.num_rows, digest) != tuple(REFERENCE_5K.values()):
         fail(f"large map: rows {report.num_rows} / sha256 {digest} differ from the JAX "
              f"reference's {REFERENCE_5K}")
+
+    # What B3's tile skip and pairs-a-lane choice meet on this map.
+    from sgtd_tpu_torch.ops import verify as verify_ops
+
+    with mock.patch.object(verify_ops, "hypothesis_votes", wraps=verify_ops.hypothesis_votes) as seen:
+        localize(db, chunks[0], cfg)
+    log_votes_call("the large map's chunk 0", seen.call_args_list[0], dev, card)
+    del seen
 
     # (2) Candidate-major pair lists: the same candidates and votes.
     cm = cfg.replace(caps=dataclasses.replace(cfg.caps, sel_max_scan_slots=0))

@@ -182,7 +182,7 @@ def probe_and_hits(
         ],
         dim=-1,
     )
-    ex = expand.expand_jobs(length, payload, l_max)  # (B, 5, L)
+    ex = expand.expand_jobs(length, payload, l_max, offsets=offsets)  # (B, 5, L)
     row = ex[:, 0] + slot
     q_a, q_b, q_c, desc = ex[:, 1], ex[:, 2], ex[:, 3], ex[:, 4]
 

@@ -4,12 +4,14 @@ sgtd_tpu.ops.pallas_expand.expand_jobs and of the XLA
 
 ``out[b, c, slot] = payload[b, job(slot), c]`` over contiguous job
 segments of lengths ``length``, truncated at ``l_max``; slots past the
-total are don't-care. A CUDA tensor launches the hand-written kernel; a
-CPU tensor takes the plain PyTorch version. There is no fallback between
-the two.
+total are don't-care (the kernel gives them the payload of one of the last jobs). A
+CUDA tensor launches the hand-written kernel; a CPU tensor takes the
+plain PyTorch version. There is no fallback between the two.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,12 +27,15 @@ def job_offsets(length: torch.Tensor) -> torch.Tensor:
     return torch.cat([zero, torch.cumsum(length, -1, dtype=torch.int32)], dim=-1)
 
 
-def expand_jobs_plain(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
+def expand_jobs_plain(
+    length: torch.Tensor, payload: torch.Tensor, l_max: int, offsets: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Plain version: the reference's delta scatter at the segment heads,
     then one int32 cumsum per channel. Heads at or past ``l_max`` drop;
     the telescoping sum gives each slot its job's value even where empty
-    jobs share a head, and int32 wrap-around cancels in it."""
-    heads = job_offsets(length)[..., :-1]  # (B, NJ)
+    jobs share a head, and int32 wrap-around cancels in it. ``offsets``
+    as :func:`expand_jobs` takes them."""
+    heads = (job_offsets(length) if offsets is None else offsets)[..., :-1]  # (B, NJ)
     delta = torch.cat([payload[:, :1], payload[:, 1:] - payload[:, :-1]], dim=1)
     keep = heads < l_max
     b = payload.shape[0]
@@ -40,14 +45,17 @@ def expand_jobs_plain(length: torch.Tensor, payload: torch.Tensor, l_max: int) -
     return torch.cumsum(buf, dim=1, dtype=torch.int32).transpose(1, 2).contiguous()
 
 
-def expand_jobs(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
-    """length (B, NJ) int32, payload (B, NJ, C) int32 -> (B, C, l_max) int32."""
+def expand_jobs(
+    length: torch.Tensor, payload: torch.Tensor, l_max: int, offsets: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """length (B, NJ) int32, payload (B, NJ, C) int32 -> (B, C, l_max) int32.
+    ``offsets``: ``job_offsets(length)`` where the caller has it already."""
     if length.device.type == "cpu":
-        return expand_jobs_plain(length, payload, l_max)
-    return _expand_jobs_cuda(length, payload, l_max)
+        return expand_jobs_plain(length, payload, l_max, offsets)
+    return _expand_jobs_cuda(length, payload, l_max, offsets)
 
 
-def _expand_jobs_cuda(length: torch.Tensor, payload: torch.Tensor, l_max: int) -> torch.Tensor:
+def _expand_jobs_cuda(length, payload, l_max, offsets) -> torch.Tensor:
     global LAUNCHES
     if length.device.type != "cuda" or payload.device != length.device:
         raise ValueError(f"expand_jobs: CUDA tensors required, got {length.device}/{payload.device}")
@@ -60,8 +68,12 @@ def _expand_jobs_cuda(length: torch.Tensor, payload: torch.Tensor, l_max: int) -
     if l_max <= 0:
         raise ValueError(f"expand_jobs: l_max {l_max} must be positive")
     b, nj, c = payload.shape
-    offsets = job_offsets(length).contiguous()
-    payload = payload.contiguous()
+    if offsets is None:
+        offsets = job_offsets(length)
+    elif offsets.shape != (b, nj + 1) or offsets.dtype != torch.int32 or offsets.device != length.device:
+        raise ValueError(f"expand_jobs: offsets must be (B, NJ + 1) int32 beside length, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype} on {offsets.device}")
+    offsets, payload = offsets.contiguous(), payload.contiguous()
     out = payload.new_empty((b, c, l_max))
     _build.launch("sgtd_expand_jobs", length.device, offsets.data_ptr(), payload.data_ptr(),
                   out.data_ptr(), b, nj, c, l_max)

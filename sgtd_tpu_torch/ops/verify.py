@@ -11,6 +11,7 @@ is no fallback between the two.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sgtd_tpu_torch.ops import _build
@@ -18,12 +19,19 @@ from sgtd_tpu_torch.ops import _build
 # Kernel launches since the last reset (the main-path check reads it).
 LAUNCHES = 0
 
-# H x 52 bytes of shared memory must stay within the 48 KB default.
+# Most pairs a thread of the kernel holds (csrc/verify.cu kPairs): a warp
+# walks a candidate's pairs in tiles of 32 * PAIRS_PER_THREAD.
+PAIRS_PER_THREAD = 4
+
+# A hypothesis takes 52 bytes of shared memory (R and t as 12 floats on a
+# 16-byte boundary, and its counter): 26 KB at MAX_H, within the 48 KB a
+# block gets without asking.
 MAX_H = 512
 
 
 def _thr2(thr: float) -> float:
-    return float(torch.tensor(float(thr) ** 2, dtype=torch.float32))
+    """thr^2 rounded once to float32, as a Python float."""
+    return float(np.float32(float(thr) ** 2))
 
 
 def hypothesis_votes_plain(
