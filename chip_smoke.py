@@ -11,7 +11,16 @@ Phases (any failure ends the run with a non-zero exit):
 2. Kernels against their plain PyTorch versions at the bench shapes, on
    inputs seeded from NumPy: B1 and B2 must be equal (B2 on the slots
    below each query's total), B3 equal except on pairs whose float64 d^2
-   lies within 1e-3 of thr^2, each launched twice for the same bits. B2
+   lies within 1e-3 of thr^2, each launched twice for the same bits. B1
+   also at one query's row and where a cluster kernel with coalesced
+   4-slot pieces can go wrong (``check_frame_votes_edges``: B 1, 3, 16 x L
+   1, 15, 16, 17, 4,099, 98,304 x f_pad 1, 7, 200, 2,048, ids -1, f_pad,
+   f_pad + 1 and int32 min and max, all hits, no hits, one frame, rows
+   off their 16-byte boundaries), with what its inputs ask
+   (``frame_votes_work``: hits, hit-free groups and pieces, the largest
+   bin's share); B1's bound counts the frame bytes of the 4-slot pieces
+   that hold a hit only, since the kernel skips the others
+   (``frame_votes_nbytes``). B2
    also at the 5,000-keyframe chunk's shape (8 x 55,296 jobs -> 1,802,240
    slots), at one query's, and where a tile-wise expansion can go wrong
    (``check_expand_edges``: an ``l_max`` that is no multiple of 4 or of a
@@ -44,12 +53,13 @@ Phases (any failure ends the run with a non-zero exit):
    problems), each launched twice for the same bits. B8 equal at
    (399,104, 2) x 106,496 rows and at (9,775,363, 2) x 14,417,920, and on
    each table at L 1, 3 and 4,099, with an index vector off its 8-byte
-   boundary, and at W 3. Every kernel's ``ms`` is a CUDA-event time: for
-   B1-B3 and B6 of the kernel's body (the C entry point on inputs made
-   beforehand, ``body_ms``), beside the host-clocked median of 20
-   synchronized calls of the wrapper (``wrapper_ms``) and of the plain
-   version; for B4, B5, B7, B8 of the wrapper (B8 and ``index_select`` in
-   turns). Each kernel's time stands
+   boundary, and at W 3. Every kernel's ``ms`` is a CUDA-event time of
+   launches queued behind a device spin, so that it is the device's time
+   and not the host's launch rate (``event_ms``): for B1-B3 and B6 of the
+   kernel's body (the C entry point on inputs made beforehand,
+   ``body_ms``), beside the host-clocked median of 20 synchronized calls
+   of the wrapper (``wrapper_ms``) and of the plain version; for B4, B5,
+   B7, B8 of the wrapper (B8 and ``index_select`` in turns). Each kernel's time stands
    beside its bound on the card (bytes over 3.35 TB/s or float32
    operations over 67 TFLOP/s, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time; B5's record
@@ -63,11 +73,15 @@ Phases (any failure ends the run with a non-zero exit):
    launch). With ``--baseline TREE`` (another tree of the port, e.g. the
    parent commit unpacked by ``git archive`` under ``build/``; the flag
    may be repeated) the host costs of the first such tree and this one
-   are taken in turns, a process a reading; B2's and B3's wrappers of
-   that tree and of this one are read in turns in this one process
-   (``wrapper_turns``); and
-   the B2, B3, B4, B7, B5 and B8 kernel bodies of every built library are
-   timed in turns on the same inputs (B2 at the bench shape, the
+   are taken in turns, a process a reading; B1's, B2's, B3's and B6's
+   wrappers of that tree and of this one are read in turns in this one
+   process (``wrapper_turns``: host cost, and B1's and B6's synchronized
+   calls at their bench shapes); and the B1, B6, B2, B3, B4, B7, B5 and
+   B8 kernel bodies of every built library are timed in turns on the same
+   inputs (B1 each with its own contract, also with what its wrapper runs
+   around it on the device, at the bench shape, one query's and, in phase
+   4, every chunk's real inputs: ``votes_turns``; B6 at f_pad 5,000 and
+   20,000; B2 at the bench shape, the
    5,000-keyframe chunk's and one query's, also followed by one pass that
    reads its output; B3 at 800, 400 and 50 candidates; B4 and B7 at 64,
    160 and 4 problems; B8 on random rows and on runs of consecutive
@@ -87,7 +101,8 @@ Phases (any failure ends the run with a non-zero exit):
    voxel-downsampled to at most 1,024 points, then ``localize_refined``
    with the GICP rerank of the top 4 candidates, chunks of 16. Gates:
    zero TRUNC_SCAN, success rate >= 0.95 on the refined poses, finite
-   poses, every kernel launched. One chunk re-runs with B4/B5 patched to
+   poses, every kernel launched. Prints what B1 meets on every chunk's
+   real inputs and its body on them. One chunk re-runs with B4/B5 patched to
    their plain versions and must give the same pick, refined and found,
    with poses within 5e-3 m and 1e-3 rad. Prints what B4's deferred argmin
    meets on that chunk's real clouds (``rescan_share``), what B3's tile
@@ -139,7 +154,10 @@ Phases (any failure ends the run with a non-zero exit):
    scan goes through ``localize_exact`` and ``_rerank_single`` and must
    land within the success gate. Prints the three summary tables.
 
-After the last phase no ``jax`` or ``sgtd_tpu`` module may be loaded. The
+After the last phase one ``torch.profiler`` session counts the device
+activities of one call of B1's wrapper at the bench shape (and of the
+first baseline's): this tree's must be one (with ``--kernels-only``, at
+the end of phase 2). No ``jax`` or ``sgtd_tpu`` module may be loaded. The
 line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -148,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import inspect
@@ -241,26 +260,63 @@ def median_times(kernel_fn, plain_fn, runs: int = 20):
     return statistics.median(t_k), statistics.median(t_p)
 
 
-def event_ms(fn, launches: int, rounds: int = 5) -> float:
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` a device millisecond,
+    measured once by CUDA events around a spin of 2e7 cycles."""
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return 2e7 / a.elapsed_time(b)
+
+
+def event_ms(fn, launches: int, rounds: int = 5, spin: bool = True) -> float:
     """Median over ``rounds`` of the CUDA-event time of ``launches``
-    back-to-back calls, per call, after a warm-up."""
+    back-to-back calls, per call, after a warm-up.
+
+    With ``spin`` the calls are queued behind a device spin
+    (``torch.cuda._sleep``) sized to twice the host's time to queue them,
+    so the device runs them back to back and the reading is the device's
+    time, not the host's launch rate. After queuing, the event that ends
+    the spin must still be pending (the host's queue ended first); else
+    the spin is doubled and the round taken again, and the run fails after
+    four tries. ``spin=False`` is for calls that may synchronize inside
+    (the plain versions): a spin would then end before the queue did."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     out = []
     for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
+        for attempt in range(4):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if spin:
+                torch.cuda._sleep(int(spin_cycles_per_ms() * (2 * queue_ms + 0.2) * 2 ** attempt))
+            a.record()
+            for _ in range(launches):
+                fn()
+            b.record()
+            early = spin and a.query()
+            torch.cuda.synchronize()
+            if not early:
+                break
+        else:
+            fail(f"event_ms: the device reached the calls before the host had queued them, four times "
+                 f"({launches} calls, {queue_ms:.3f} ms to queue)")
         out.append(a.elapsed_time(b) / launches)
     return statistics.median(out)
 
 
 def body_ms(entry: str, dev, *args, launches: int = 50) -> float:
     """CUDA-event ms of one launch of the C entry point ``entry`` on inputs
-    made beforehand (``event_ms`` of ``launches`` back-to-back launches):
+    made beforehand (``event_ms`` of ``launches`` launches queued behind a
+    device spin):
     the kernel's body, without its wrapper's checks, allocations and the
     tensor operations around the launch. Back-to-back launches on the same
     buffers find in the L2 cache what fits there, as a caller that has just
@@ -550,6 +606,177 @@ def expand_body_ms(dev, length, payload, l_max: int, launches: int = 50) -> floa
                    b, nj, c, l_max, launches=launches)
 
 
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def votes_inputs(rng, b: int, l: int, f_pad: int, kind: str, dev, offsets=(0, 0)):
+    """(hit, frame) of B1's shape (b, l): ``mixed`` draws 30% hits and ids
+    in [0, f_pad), a fifth of them replaced by ids that count nothing (-1,
+    f_pad, f_pad + 1, int32 min and max); ``all hits``, ``no hits`` and
+    ``one frame`` (every slot a hit on frame f_pad // 2) keep the mixed
+    ids where they do not set them. ``offsets`` (hit bytes, frame ids) put
+    the rows that far past the start of an aligned buffer."""
+    hit = rng.uniform(size=(b, l)) < 0.3
+    frame = rng.integers(0, f_pad, (b, l), dtype=np.int64)
+    bad = rng.uniform(size=(b, l)) < 0.2
+    frame[bad] = rng.choice([-1, f_pad, f_pad + 1, INT32_MIN, INT32_MAX], int(bad.sum()))
+    if kind == "all hits":
+        hit[:] = True
+    elif kind == "no hits":
+        hit[:] = False
+    elif kind == "one frame":
+        hit[:], frame[:] = True, f_pad // 2
+    oh, of = offsets
+    hit_buf = torch.zeros(b * l + oh, dtype=torch.bool, device=dev)
+    frame_buf = torch.zeros(b * l + of, dtype=torch.int32, device=dev)
+    hit_buf[oh:] = torch.from_numpy(hit.reshape(-1)).to(dev)
+    frame_buf[of:] = torch.from_numpy(frame.reshape(-1).astype(np.int32)).to(dev)
+    return hit_buf[oh:].view(b, l), frame_buf[of:].view(b, l)
+
+
+def check_frame_votes(name: str, hit, frame, f_pad: int) -> float:
+    """B1 against its plain version: float32 and equal on every bin, and a
+    second launch gives the same bits. Returns max |err| (0)."""
+    from sgtd_tpu_torch.ops import probe
+
+    got = probe.frame_votes(hit, frame, f_pad)
+    want = probe.frame_votes_plain(hit, frame, f_pad)
+    if got.dtype != torch.float32 or got.shape != want.shape or not torch.equal(got, want):
+        err = (got.float() - want).abs().max().item() if got.shape == want.shape else float("nan")
+        fail(f"{name} differs from its plain version (max |err| {err})")
+    if not torch.equal(got.view(torch.int32), probe.frame_votes(hit, frame, f_pad).view(torch.int32)):
+        fail(f"{name}: two launches on the same input differ in their bits")
+    return 0.0
+
+
+def frame_votes_body_ms(hit, frame, f_pad: int, launches: int = 50) -> float:
+    """B1's kernel body by CUDA events behind a device spin: one launch
+    that writes the float32 counts whole."""
+    b, l = hit.shape
+    counts = hit.new_empty((b, f_pad), dtype=torch.float32)
+    return body_ms("sgtd_frame_votes", hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad,
+                   launches=launches)
+
+
+def hit_free_share(hit, group: int) -> float:
+    """Share of the ``group``-slot groups (from each row's start; a row's
+    last group may be shorter) that hold no hit."""
+    b, l = hit.shape
+    return 1.0 - float(torch.nn.functional.pad(hit, (0, -l % group)).view(b, -1, group).any(-1).float().mean())
+
+
+def frame_votes_nbytes(hit, f_pad: int, piece: int = 4) -> int:
+    """Bytes B1 must move on these inputs: every hit byte read, the frame
+    ids of every ``piece``-slot piece (from each row's start) that holds a
+    hit read, the float32 counts written. The kernel skips the frame loads
+    of hit-free pieces, so its bound counts only the frame bytes these
+    inputs need."""
+    b, l = hit.shape
+    has = torch.nn.functional.pad(hit, (0, -l % piece)).view(b, -1, piece).any(-1).sum(0)
+    slots = torch.full_like(has, piece)
+    slots[-1:] = l - piece * (has.numel() - 1)  # the row's last piece may be shorter
+    return b * l + 4 * int((has * slots).sum()) + 4 * b * f_pad
+
+
+def frame_votes_work(hit, frame, f_pad: int) -> str:
+    """What these inputs ask of B1: the share of slots that are hits, the
+    shares of 16-slot groups and of 4-slot pieces (from each row's start)
+    without a hit (the kernel skips the frame loads of such pieces), and
+    the share of a query's counted hits that its largest bin takes (median
+    and largest over the queries): the contention of its shared atomics."""
+    b, l = hit.shape
+    counted = hit & (frame >= 0) & (frame < f_pad)
+    idx = torch.where(counted, frame, 0).long()
+    bins = torch.zeros((b, f_pad), device=hit.device).scatter_add_(-1, idx, counted.float())
+    top = (bins.amax(-1) / bins.sum(-1).clamp(min=1)).float()
+    return (f"{float(hit.float().mean()):.4f} of the slots hit, {hit_free_share(hit, 16):.4f} of the 16-slot groups "
+            f"and {hit_free_share(hit, 4):.4f} of the 4-slot pieces hold no hit, the largest bin takes "
+            f"{float(top.median()):.4f} (median) and {float(top.max()):.4f} (most) of a query's counted hits")
+
+
+def device_activities(calls: dict):
+    """Device activities (kernels, memsets, copies) that ``torch.profiler``
+    records over one call of each of ``calls`` (name -> function), all in
+    one profiling session: on the card's machine a second session in a
+    process recorded no device activity. The calls run 20 ms apart and
+    their activities are told apart by those gaps. Fails where the session
+    records no device activity at all: a check that counts them must not
+    pass on a session that saw nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        fail("device_activities: the torch.profiler session recorded no device activity (a process's later "
+             "sessions record none on the card's machine: take this one first)")
+    runs = [[spans[0]]]
+    for span in spans[1:]:
+        if span[0] - max(end for _, end in runs[-1]) > 10_000:  # us
+            runs.append([])
+        runs[-1].append(span)
+    if len(runs) != len(calls):
+        fail(f"device_activities: {len(runs)} runs of device activity for {len(calls)} calls")
+    return {name: len(run) for name, run in zip(calls, runs)}
+
+
+def log_frame_votes_activities(dev, card: str, old_probe=None) -> None:
+    """The device activities of one call of B1's wrapper at the bench shape
+    (``device_activities``), and of ``old_probe``'s where a baseline tree
+    gave one; fails where this tree's call runs more than its one kernel."""
+    from sgtd_tpu_torch.ops import probe
+
+    hit, frame = votes_inputs(np.random.default_rng(SEED + 8), CHUNK, 98304, 200, "mixed", dev)
+    calls = {"this tree": lambda: probe.frame_votes(hit, frame, 200)}
+    if old_probe is not None:
+        calls["baseline"] = lambda: old_probe.frame_votes(hit, frame, 200)
+    seen = device_activities(calls)
+    log(f"   device activities of one frame_votes call at ({CHUNK}, 98304) f_pad 200 (torch.profiler): {seen} [{card}]")
+    if seen["this tree"] != 1:
+        fail(f"B1 frame_votes: one call ran {seen['this tree']} device activities, not 1")
+
+
+def check_frame_votes_edges(dev, card: str) -> dict:
+    """B1 against its plain version (``check_frame_votes``) at B 1, 3, 16 x L
+    1, 15, 16, 17, 4,099, 98,304 x f_pad 1, 7, 200, 2,048 (rows off the
+    16-byte boundary where L % 16 != 0; f_pad below the cluster's blocks),
+    with ids -1, f_pad, f_pad + 1 and int32 min and max; all hits, no hits
+    and every hit on one frame; rows whose hit and frame start off their
+    boundaries (with the vector path still open, and closed). One query's
+    row (1, 98,304) f_pad 200 timed. Returns {shape: ms, bound_ms, bound_by}."""
+    rng = np.random.default_rng(SEED + 5)
+    n = 0
+    for b in (1, 3, 16):
+        for l in (1, 15, 16, 17, 4099, 98304):
+            for f_pad in (1, 7, 200, 2048):
+                check_frame_votes(f"B1 frame_votes edge ({b}, {l}) f_pad {f_pad}",
+                                  *votes_inputs(rng, b, l, f_pad, "mixed", dev), f_pad)
+                n += 1
+    cases = [(kind, shape) for kind in ("all hits", "no hits", "one frame")
+             for shape in ((1, 17, 7), (3, 4099, 200), (16, 98304, 2048))]
+    cases += [(f"hit +{oh} B, frame +{of} ids", (3, 4099, 200), (oh, of)) for oh, of in ((1, 1), (1, 0), (6, 2), (15, 3))]
+    for case in cases:
+        kind, (b, l, f_pad), offsets = case if len(case) == 3 else (*case, (0, 0))
+        check_frame_votes(f"B1 frame_votes edge [{kind}] ({b}, {l}) f_pad {f_pad}",
+                          *votes_inputs(rng, b, l, f_pad, "mixed" if "+" in kind else kind, dev, offsets), f_pad)
+    log(f"   B1 frame_votes edges: {n} shapes (B 1, 3, 16 x L 1, 15, 16, 17, 4,099, 98,304 x f_pad 1, 7, 200, 2,048; "
+        f"ids -1, f_pad, f_pad + 1, int32 min, max), all hits, no hits, one frame, rows off their 16-byte "
+        f"boundaries ({len(cases)} more): equal to the plain version, same bits twice")
+    hit, frame = votes_inputs(rng, 1, 98304, 200, "mixed", dev)
+    ms = frame_votes_body_ms(hit, frame, 200)
+    bound = frame_votes_nbytes(hit, 200) / HBM_BYTES_S * 1e3
+    log(f"B1 frame_votes (1, 98304) f_pad 200 (one query): kernel body {ms:.4f} ms (CUDA events behind a device "
+        f"spin), bound {bound:.5f} ms by bytes ({bound / ms:.3f} of the body) [{card}]")
+    return {"B 1 L 98304": {"ms": ms, "bound_ms": bound, "bound_by": "bytes"}}
+
+
 EXPAND_JOBS, EXPAND_CHANNELS = 2048 * 27, 5  # 2,048 descriptors x 27 probes; row base, three sides, descriptor
 
 
@@ -832,28 +1059,29 @@ def check_kernels(dev, card: str):
     rng = np.random.default_rng(SEED)
     records = []
 
-    # B1 frame_votes: (16, 98,304) slots, 200 frames, sentinel ids included.
+    # B1 frame_votes: (16, 98,304) slots, 200 frames, sentinel ids included;
+    # then one query's row, and the shapes where a cluster kernel with
+    # 16-byte loads can go wrong.
     b, l, f_pad = CHUNK, 98304, 200
     hit = torch.from_numpy(rng.uniform(size=(b, l)) < 0.3).to(dev)
     frame = torch.from_numpy(rng.integers(-1, f_pad + 2, (b, l), dtype=np.int32)).to(dev)
-    got = probe.frame_votes(hit, frame, f_pad)
-    want = probe.frame_votes_plain(hit, frame, f_pad)
-    err = (got - want).abs().max().item()
-    if err != 0:
-        fail(f"B1 frame_votes differs from its plain version (max |err| {err})")
+    err = check_frame_votes(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}", hit, frame, f_pad)
     wrapper_ms, plain_ms = median_times(
         lambda: probe.frame_votes(hit, frame, f_pad),
         lambda: probe.frame_votes_plain(hit, frame, f_pad),
     )
-    counts = frame.new_zeros((b, f_pad))  # the body adds into zeroed counts; here it only piles up
-    ms = body_ms("sgtd_frame_votes", dev, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
-    log(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}: equal; kernel body {ms:.4f} ms (CUDA events), wrapper "
-        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized calls) [{card}]")
+    ms = frame_votes_body_ms(hit, frame, f_pad)
+    log(f"B1 frame_votes ({b}, {l}) f_pad {f_pad}: equal, same bits twice; kernel body {ms:.4f} ms (CUDA events "
+        f"behind a device spin), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized "
+        f"calls) [{card}]")
+    log(f"   what these inputs ask: {frame_votes_work(hit, frame, f_pad)}")
     records.append(kernel_record(
         "frame_votes", "probe.cu", "sgtd_tpu/ops/pallas_probe.py:67", err, ms, plain_ms,
-        nbytes=b * l * 5 + b * f_pad * 4, flops=b * l, library_ms=scatter_add_ms(hit, frame, f_pad),
+        nbytes=frame_votes_nbytes(hit, f_pad), flops=b * l, library_ms=scatter_add_ms(hit, frame, f_pad),
         wrapper_ms=wrapper_ms))
     log_bound(records[-1])
+    records[-1]["shapes"] = check_frame_votes_edges(dev, card)
+    del hit, frame
 
     # B2 expand_jobs: 16 x 55,296 jobs (2048 descriptors x 27 probes), 5
     # channels (one of any sign), 98,304 slots; skewed lengths, many empty.
@@ -942,7 +1170,7 @@ def check_kernels(dev, card: str):
             fail(f"B4 nn1 P {p}: two launches on the same input differ in their bits")
         err = max(err, (got_d - want_d).abs().max().item())
         ms = event_ms(lambda: nn.nn1(src, tgt), 50 if p < 1000 else 10)
-        plain_ms = event_ms(lambda: nn.nn1_plain(src, tgt), 1, 3)
+        plain_ms = event_ms(lambda: nn.nn1_plain(src, tgt), 1, 3, spin=False)
         plan = nn.scan_plan(p, n)
         log(f"B4 nn1 ({p}, {n}) x ({p}, {t}): {n_rows} rows differ (1-ulp rule), max |err| {err}, same bits "
             f"twice; kernel {ms:.4f} ms ({plan[0]} queries a thread, {plan[2]} blocks of {plan[1]} warps), "
@@ -980,7 +1208,7 @@ def check_kernels(dev, card: str):
         if not torch.equal(got, nn.knn(pts, pts, k)):
             fail(f"B5 knn {shape}: two launches on the same input differ in their bits")
         ms = event_ms(lambda: nn.knn(pts, pts, k), 10 if shape[0] == NUM_MAP else 50)
-        plain_ms = event_ms(lambda: nn.knn_plain(pts, pts, k), 1, 3)
+        plain_ms = event_ms(lambda: nn.knn_plain(pts, pts, k), 1, 3, spin=False)
         log(f"B5 knn {shape} self, k {k}: {n_rows} rows differ (1-ulp rule), max |err| {err}, same bits "
             f"twice; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) [{card}]")
         # Operations: 8 per distance, as B4; the selection is not counted.
@@ -1129,7 +1357,7 @@ def check_fused_kernels(dev, card: str, rng):
     moved = gicp._moved_fma(args[0], args[1])
     ms = event_ms(lambda: gicp.linearize_sums(*args, float("inf")), 50)
     nn1_ms = event_ms(lambda: nn.nn1(moved, args[4]), 50)
-    plain_ms = event_ms(lambda: gicp.linearize_sums_plain(*args, float("inf")), 1, 3)
+    plain_ms = event_ms(lambda: gicp.linearize_sums_plain(*args, float("inf")), 1, 3, spin=False)
     log(f"B7 linearize_gicp {shape}: kernel {ms:.4f} ms, B4 nn1 on the same points {nn1_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms (CUDA events) [{card}]")
     # Operations: 8 per distance plus about 300 per source point; bytes:
@@ -1174,7 +1402,7 @@ def check_fused_kernels(dev, card: str, rng):
         reps = 50 if l < (1 << 20) else 10
         ms, lib_ms = turns_ms(lambda: probe.gather_rows(table, idx),
                               lambda: torch.index_select(table, 0, idx), reps)
-        plain_ms = event_ms(lambda: probe.gather_rows_plain(table, idx), reps)
+        plain_ms = event_ms(lambda: probe.gather_rows_plain(table, idx), reps, spin=False)
         log(f"B8 gather_rows ({m}, 2) x {l}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_select {lib_ms:.4f} ms (CUDA events, kernel and index_select in turns) [{card}]")
         # Bytes: the indices and the rows they name read once, the rows written once.
@@ -1215,6 +1443,60 @@ def turns_ms_of(fns, launches: int) -> list:
     return [statistics.median(t) for t in acc]
 
 
+def votes_contract(lib, dev) -> str:
+    """How a library's ``sgtd_frame_votes`` returns its counts, found by
+    running it once: ``float32`` (written whole, this tree's) or ``int32``
+    (added into int32 counts the caller zeroed: the tally of three launches
+    in trees before the float32 contract, kept so that this tree can be
+    held to them in turns)."""
+    hit = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    frame = torch.full((1, 64), 3, dtype=torch.int32, device=dev)
+    buf = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    if lib.sgtd_frame_votes(hit.data_ptr(), frame.data_ptr(), buf.data_ptr(), 1, 64, 8,
+                            torch.cuda.current_stream(dev).cuda_stream):
+        fail("votes_contract: sgtd_frame_votes failed to launch")
+    if int(buf[0, 3]) == 64:
+        return "int32"
+    if float(buf.view(torch.float32)[0, 3]) == 64.0:
+        return "float32"
+    fail(f"votes_contract: sgtd_frame_votes wrote neither contract's counts: {buf.tolist()}")
+
+
+def votes_turns(libs: list, what: str, hit, frame, f_pad: int, card: str) -> None:
+    """B1's kernel bodies of every library of ``libs`` ((name, ctypes
+    library, contract) each), in turns on these inputs, each with its own
+    contract, and each with what a call of its wrapper runs on the device
+    around it (the int32 contract: a memset of the counts before and a
+    conversion to float32 after). Every library's counts must equal the
+    plain version's."""
+    from sgtd_tpu_torch.ops import probe
+
+    b, l = hit.shape
+    want = probe.frame_votes_plain(hit, frame, f_pad)
+    stream = torch.cuda.current_stream(hit.device).cuda_stream
+    bodies, whole = [], []
+    for name, lib, contract in libs:
+        out = torch.empty((b, f_pad), dtype=torch.float32 if contract == "float32" else torch.int32, device=hit.device)
+        floats = torch.empty((b, f_pad), dtype=torch.float32, device=hit.device)
+        body = lambda lib=lib, out=out: lib.sgtd_frame_votes(hit.data_ptr(), frame.data_ptr(), out.data_ptr(), b, l,
+                                                             f_pad, stream)
+        if contract == "float32":
+            full, result = body, out
+        else:
+            full = lambda body=body, out=out, floats=floats: (out.zero_(), body(), floats.copy_(out))
+            result = floats
+        full()
+        if not torch.equal(result, want):
+            fail(f"baseline compare: B1 frame_votes {what}: {name} differs from the plain version")
+        bodies.append(body)
+        whole.append(full)
+    names = [n for n, _, _ in libs]
+    fmt = lambda ms: ", ".join(f"{n} {t:.4f} ms" for n, t in zip(names, ms))
+    log(f"   B1 frame_votes {what}, kernel bodies in turns, equal counts: {fmt(turns_ms_of(bodies, 50))} "
+        f"(CUDA events) [{card}]")
+    log(f"      with what each call runs around its body on the device: {fmt(turns_ms_of(whole, 50))}")
+
+
 def baseline_run(tree: str) -> dict:
     """``host_costs`` of the port's tree unpacked at ``tree`` (this one's
     when it is the script's own directory), measured in a process of its
@@ -1237,14 +1519,15 @@ def library_of(tree: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def wrapper_turns(dev, card: str, tree: str) -> None:
-    """Host cost of B2's and B3's wrappers, ``tree``'s and this tree's, read
-    in this one process in turns (old, new, new, old; the least of each
-    one's two ``host_us`` readings). ``tree``'s ``ops/expand.py`` and
-    ``ops/verify.py`` are loaded under other module names; they launch
-    through this tree's library, which on these tiny inputs costs the host
-    the same."""
-    from sgtd_tpu_torch.ops import expand, verify
+def wrapper_turns(dev, card: str, tree: str):
+    """Host cost of B1's, B2's, B3's and B6's wrappers, ``tree``'s and this
+    tree's, read in this one process in turns (old, new, new, old; the
+    least of each one's two ``host_us`` readings); then B1's and B6's
+    wrappers at the bench shapes as host-clocked medians of synchronized
+    calls, in turns. ``tree``'s ``ops`` modules are loaded under other
+    module names and launch through ``tree``'s own ``ops/_build.py`` and
+    library; its ``ops/probe.py`` is returned."""
+    from sgtd_tpu_torch.ops import expand, probe, verify
 
     def load(name):
         path = os.path.join(tree, "sgtd_tpu_torch", "ops", f"{name}.py")
@@ -1253,14 +1536,22 @@ def wrapper_turns(dev, card: str, tree: str) -> None:
         spec.loader.exec_module(mod)
         return mod
 
-    old_expand, old_verify = load("expand"), load("verify")
+    old_build = load("_build")
+    old_expand, old_verify, old_probe = load("expand"), load("verify"), load("probe")
+    for mod in (old_expand, old_verify, old_probe):
+        mod._build = old_build
     length = torch.ones((1, 4), dtype=torch.int32, device=dev)
     payload = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
     offsets = expand.job_offsets(length)
     rot = torch.eye(3, device=dev).expand(1, 2, 3, 3).contiguous()
     t_h, verts = torch.zeros((1, 2, 3), device=dev), torch.zeros((1, 4, 3, 3), device=dev)
     ones4 = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    hit, frame = torch.ones((1, 64), dtype=torch.bool, device=dev), torch.zeros((1, 64), dtype=torch.int32, device=dev)
     calls = {
+        f"frame_votes, {tree}": lambda: old_probe.frame_votes(hit, frame, 8),
+        "frame_votes, this tree": lambda: probe.frame_votes(hit, frame, 8),
+        f"frame_votes_wide, {tree}": lambda: old_probe.frame_votes_wide(hit, frame, 8),
+        "frame_votes_wide, this tree": lambda: probe.frame_votes_wide(hit, frame, 8),
         f"expand_jobs, {tree}": lambda: old_expand.expand_jobs(length, payload, 16),
         "expand_jobs, this tree": lambda: expand.expand_jobs(length, payload, 16),
         "expand_jobs, this tree, offsets passed": lambda: expand.expand_jobs(length, payload, 16, offsets=offsets),
@@ -1276,17 +1567,33 @@ def wrapper_turns(dev, card: str, tree: str) -> None:
         + ", ".join(f"{name} {min(r):.2f} {[round(x, 2) for x in r]}" for name, r in readings.items())
         + f" [{card}]")
 
+    rng = np.random.default_rng(SEED + 7)
+    shapes = [("frame_votes", CHUNK, 98304, 200), ("frame_votes_wide", SCALE_CHUNK, 1802240, 5000),
+              ("frame_votes_wide", SCALE_CHUNK, 1802240, 20000)]
+    for fn_name, b, l, f_pad in shapes:
+        hit, frame = votes_inputs(rng, b, l, f_pad, "mixed", dev)
+        old_fn, new_fn = getattr(old_probe, fn_name), getattr(probe, fn_name)
+        if not torch.equal(old_fn(hit, frame, f_pad), new_fn(hit, frame, f_pad)):
+            fail(f"wrapper turns: {fn_name} ({b}, {l}) f_pad {f_pad}: {tree} and this tree differ")
+        t_new, t_old = median_times(lambda: new_fn(hit, frame, f_pad), lambda: old_fn(hit, frame, f_pad))
+        log(f"   {fn_name} ({b}, {l}) f_pad {f_pad}, wrapper in turns (median of synchronized calls): {tree} "
+            f"{t_old:.4f} ms, this tree {t_new:.4f} ms [{card}]")
+    return old_probe
 
-def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> None:
+
+def compare_baselines(dev, card: str, trees: list, with_host_costs: bool):
     """With ``--baseline TREE`` (another tree of the port, e.g. the parent
     commit unpacked by ``git archive`` under ``build/``; the flag may be
     given several times): the wrappers' host costs of the first such tree
     and of this one, each in its own process, in turns (baseline, this,
-    this, baseline); then the kernel bodies of B4, B7, B5 and B8 of every
-    built library, called straight through ctypes on the same inputs, in
-    turns through the trees and back, with equal outputs required (B7: the
-    per-point b and w and n_valid equal, the largest gap of the other
-    outputs printed)."""
+    this, baseline), and in this process (``wrapper_turns``); then the
+    kernel bodies of B1, B6, B2, B3, B4, B7, B5 and B8 of every built
+    library, called straight through ctypes on the same inputs, in turns
+    through the trees and back, with equal outputs required (B2: on valid
+    slots; B7: the per-point b and w and n_valid equal, the largest gap of
+    the other outputs printed). Returns the first tree's ``ops/probe.py``
+    and every library's (name, ctypes library, B1 contract), this tree's
+    last, through which phase 4 times B1 on its real inputs in turns."""
     import ctypes
 
     from sgtd_tpu_torch.ops import _build, expand, gicp, verify
@@ -1307,7 +1614,7 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
     def bind(path):
         lib = ctypes.CDLL(path)
         for name in ("sgtd_nn1", "sgtd_linearize_gicp", "sgtd_knn", "sgtd_gather_rows", "sgtd_expand_jobs",
-                     "sgtd_hypothesis_votes"):
+                     "sgtd_hypothesis_votes", "sgtd_frame_votes", "sgtd_frame_votes_wide"):
             getattr(lib, name).argtypes = _build.SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         return lib
@@ -1319,8 +1626,33 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
     rng = np.random.default_rng(SEED + 1)
     fmt = lambda ms: ", ".join(f"{name} {t:.4f} ms" for name, t in zip(names, ms))
 
-    wrapper_turns(dev, card, trees[0])
+    old_probe = wrapper_turns(dev, card, trees[0])
     rng_b23 = np.random.default_rng(SEED + 4)  # B2's and B3's own, so that the others' inputs stay what they were
+
+    # B1 at the bench shape and one query's, every library with its own
+    # contract (phase 4 adds its real inputs); B6 at the 5,000-keyframe
+    # chunk's shape for f_pad 5,000 and 20,000, equal counts required.
+    votes_libs = [(name, lib, votes_contract(lib, dev)) for name, lib in zip(names, libs)]
+    log("   B1 contracts: " + ", ".join(f"{n} {c}" for n, _, c in votes_libs))
+    rng_b16 = np.random.default_rng(SEED + 6)
+    for b in (CHUNK, 1):
+        votes_turns(votes_libs, f"({b}, 98304) f_pad 200, phase 2's draw",
+                    *votes_inputs(rng_b16, b, 98304, 200, "mixed", dev), 200, card)
+    for f_pad in (5000, 20000):
+        b, l = SCALE_CHUNK, 1802240
+        hit, frame = votes_inputs(rng_b16, b, l, f_pad, "mixed", dev)
+        want = torch.zeros((b, f_pad), dtype=torch.int32, device=dev)
+        want.scatter_add_(-1, torch.where(hit & (frame >= 0) & (frame < f_pad), frame, 0).long(),
+                          (hit & (frame >= 0) & (frame < f_pad)).int())
+        outs = [torch.zeros((b, f_pad), dtype=torch.int32, device=dev) for _ in libs]
+        run = lambda lib, o: lib.sgtd_frame_votes_wide(hit.data_ptr(), frame.data_ptr(), o.data_ptr(), b, l, f_pad,
+                                                       stream())
+        if any(run(lib, o) for lib, o in zip(libs, outs)) or not all(torch.equal(o, want) for o in outs):
+            fail(f"baseline compare: B6 frame_votes_wide f_pad {f_pad} differs between the libraries")
+        ms = turns_ms_of([lambda lib=lib, o=o: run(lib, o) for lib, o in zip(libs, outs)], 20)
+        log(f"   B6 frame_votes_wide ({b}, {l}) f_pad {f_pad}, kernel bodies in turns (counts piling up), equal "
+            f"counts: {fmt(ms)} (CUDA events) [{card}]")
+        del hit, frame, want, outs
 
     # B2 at the bench shape, the 5,000-keyframe chunk's and one query's:
     # equal on the valid slots.
@@ -1434,6 +1766,7 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool) -> Non
             lib_ms = event_ms(lambda: torch.index_select(table, 0, idx), 20, 3)
             log(f"   B8 gather_rows ({m}, 2) x {l}, {pattern}, kernel bodies in turns, equal outputs: {fmt(ms)}; "
                 f"index_select {lib_ms:.4f} ms (CUDA events) [{card}]")
+    return old_probe, votes_libs
 
 
 def main_path(dev, card: str):
@@ -1589,7 +1922,7 @@ def pose_gap(a: torch.Tensor, b: torch.Tensor):
     return dt, torch.arcsin(s.clamp(0, 1)).max().item()
 
 
-def refined_path(dev, card: str, cfg, db, world, queries, chunks):
+def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=()):
     """Phase 4: the refined main path (bench.py:153-213) on the same DB."""
     from sgtd_tpu_torch.data.synthetic import render_planar_cloud
     from sgtd_tpu_torch.eval.metrics import rpe, success_rate
@@ -1693,12 +2026,23 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks):
     # What B3's warp skip meets on every chunk's real candidates.
     from sgtd_tpu_torch.ops import verify as verify_ops
 
-    with mock.patch.object(verify_ops, "hypothesis_votes", wraps=verify_ops.hypothesis_votes) as seen:
+    from sgtd_tpu_torch.ops import probe as probe_ops
+
+    with mock.patch.object(verify_ops, "hypothesis_votes", wraps=verify_ops.hypothesis_votes) as seen, \
+            mock.patch.object(probe_ops, "frame_votes", wraps=probe_ops.frame_votes) as seen_b1:
         for q, s in zip(chunks, sl):
             refined_stages(db, q, q_clouds[s], q_masks[s], map_clouds, map_masks, map_covs, cfg, RERANK_K)
     for i, call in enumerate(seen.call_args_list):
         log_votes_call(f"chunk {i}", call, dev, card)
-    del seen
+    for i, call in enumerate(seen_b1.call_args_list):
+        hit, frame, f_pad = call.args
+        ms, bound = frame_votes_body_ms(hit, frame, f_pad), frame_votes_nbytes(hit, f_pad) / HBM_BYTES_S * 1e3
+        log(f"B1 on chunk {i}'s real inputs {tuple(hit.shape)} f_pad {f_pad}: {frame_votes_work(hit, frame, f_pad)}; "
+            f"kernel body {ms:.4f} ms (CUDA events behind a device spin), bound {bound:.5f} ms by bytes "
+            f"({bound / ms:.3f} of the body) [{card}]")
+        if votes_libs:
+            votes_turns(votes_libs, f"on chunk {i}'s real inputs", hit, frame, f_pad, card)
+    del seen, seen_b1
 
     splits = [refined_stages(*args)[2] for _ in range(3)]
     split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
@@ -2175,8 +2519,8 @@ def main() -> None:
                         help="keyframes of phase 5's large map (default 5000)")
     parser.add_argument("--baseline", metavar="TREE", action="append",
                         help="another tree of the port (e.g. the parent commit unpacked under build/): "
-                             "phase 2 also times its wrappers and its B4, B7, B5 and B8 against this tree's, in "
-                             "turns; may be given several times (host costs: the first tree's only)")
+                             "phase 2 also times its wrappers and its kernel bodies against this tree's, in "
+                             "turns; may be given several times (wrappers: the first tree's only)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 2 and the --baseline comparison (which then skips the host "
                              "costs): no path is driven and no result line is printed")
@@ -2225,13 +2569,15 @@ def main() -> None:
     log(f"host cost of a call, us (host clock over {HOST_COST_CALLS} back-to-back calls on tiny inputs, one "
         f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "
         + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()) + f" [{card}]")
+    old_probe, votes_libs = None, []
     if args.baseline:
-        compare_baselines(dev, card, args.baseline, with_host_costs=not args.kernels_only)
+        old_probe, votes_libs = compare_baselines(dev, card, args.baseline, with_host_costs=not args.kernels_only)
     if args.kernels_only:
+        log_frame_votes_activities(dev, card, old_probe)
         log(f"--kernels-only: stopping after phase 2 ({time.perf_counter() - T_START:.1f} s)")
         return
     b8_launches, ctx = main_path(dev, card)
-    launches, map_knn_launches, *refined = refined_path(dev, card, *ctx)
+    launches, map_knn_launches, *refined = refined_path(dev, card, *ctx, votes_libs=votes_libs)
     del ctx
     b6_launches = large_map(dev, card, args.scale_frames)
     b7_launches = fused_path(dev, card, *refined)
@@ -2246,6 +2592,9 @@ def main() -> None:
     for rec, n in zip(records, launches):
         rec["launches"] = n
     records[4]["map"]["launches"] = map_knn_launches
+    # After every timed phase, so that none runs under or after a
+    # profiling session.
+    log_frame_votes_activities(dev, card, old_probe)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:
         fail(f"modules of JAX or of the JAX package were loaded: {loaded}")

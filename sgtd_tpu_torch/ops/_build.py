@@ -52,8 +52,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # Entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
-    # hit, frame, out_counts, B, L, f_pad, stream
+    # hit, frame, out float32 counts (written whole), B, L, f_pad, stream
     "sgtd_frame_votes": (_P, _P, _P, _I, _I, _I, _P),
+    # hit, frame, int32 counts (zeroed by the caller), B, L, f_pad, stream
     "sgtd_frame_votes_wide": (_P, _P, _P, _I, _I, _I, _P),
     # offsets, payload, out, B, NJ, C, l_max, stream
     "sgtd_expand_jobs": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -155,12 +156,25 @@ def entry_points() -> dict:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` with ``args`` and, last, the current stream
     of ``device`` (a CUDA device with an index, as a tensor's is); raise
-    where it reports a CUDA error.
+    where it reports a CUDA error. The entry points launch on the current
+    device, so where ``device`` is another card the call runs inside
+    ``torch.cuda.device(device.index)``.
 
     ``torch._C._cuda_getCurrentRawStream`` returns the stream's handle as
     an int without building a ``torch.cuda.Stream`` (Triton's launcher
-    reads the stream the same way). CUDA builds of torch have it (2.11 was
-    checked); CPU-only builds do not, and never come here."""
-    rc = entry_points()[name](*args, torch._C._cuda_getCurrentRawStream(device.index))
+    reads the stream the same way), and ``torch._C._cuda_getDevice`` the
+    current device without ``torch.cuda.current_device``'s Python checks.
+    CUDA builds of torch have both (2.11 was checked); CPU-only builds do
+    not, and never come here."""
+    index = device.index
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            rc = _start(name, index, args)
+    else:
+        rc = _start(name, index, args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _start(name: str, index: int, args: tuple) -> int:
+    return entry_points()[name](*args, torch._C._cuda_getCurrentRawStream(index))

@@ -17,7 +17,7 @@ LAUNCHES = 0
 WIDE_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 
-# Widest frame axis of B1; B6 takes any.
+# Widest frame axis of B1 (kMaxFPad of csrc/probe.cu); B6 takes any.
 MAX_F_PAD = 2048
 
 
@@ -37,13 +37,17 @@ def frame_votes_wide_plain(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -
 def frame_votes(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
     """Sum of ``hit`` per ``frame`` id: (B, L) bool, (B, L) int32 -> (B, f_pad)
     float32 holding exact integer counts, f_pad <= 2048. Ids outside
-    [0, f_pad) are dropped."""
+    [0, f_pad) are dropped. On the card one launch writes every count: the
+    output needs no zeroing and no conversion."""
     global LAUNCHES
     if hit.device.type == "cpu":
         return frame_votes_plain(hit, frame, f_pad)
     if not 0 < f_pad <= MAX_F_PAD:
         raise ValueError(f"frame_votes: f_pad {f_pad} outside (0, {MAX_F_PAD}]")
-    counts = _launch("sgtd_frame_votes", hit, frame, f_pad)
+    hit, frame = _checked("sgtd_frame_votes", hit, frame)
+    b, l = hit.shape
+    counts = hit.new_empty((b, f_pad), dtype=torch.float32)
+    _build.launch("sgtd_frame_votes", hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
     LAUNCHES += 1
     return counts
 
@@ -57,23 +61,23 @@ def frame_votes_wide(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torc
         return frame_votes_wide_plain(hit, frame, f_pad)
     if f_pad <= 0:
         raise ValueError(f"frame_votes_wide: f_pad {f_pad} must be positive")
-    counts = _launch("sgtd_frame_votes_wide", hit, frame, f_pad)
+    hit, frame = _checked("sgtd_frame_votes_wide", hit, frame)
+    b, l = hit.shape
+    counts = frame.new_zeros((b, f_pad))
+    _build.launch("sgtd_frame_votes_wide", hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
     WIDE_LAUNCHES += 1
-    return counts
+    return counts.to(torch.float32)
 
 
-def _launch(entry: str, hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Tensor:
+def _checked(entry: str, hit: torch.Tensor, frame: torch.Tensor):
+    """The inputs of a tally kernel, checked and contiguous."""
     if hit.device.type != "cuda" or frame.device != hit.device:
         raise ValueError(f"{entry}: CUDA tensors required, got {hit.device}/{frame.device}")
     if hit.dtype != torch.bool or frame.dtype != torch.int32:
         raise TypeError(f"{entry}: bool hit and int32 frame, got {hit.dtype}/{frame.dtype}")
     if hit.dim() != 2 or frame.shape != hit.shape:
         raise ValueError(f"{entry}: (B, L) inputs, got {tuple(hit.shape)}/{tuple(frame.shape)}")
-    hit, frame = hit.contiguous(), frame.contiguous()
-    b, l = hit.shape
-    counts = frame.new_zeros((b, f_pad))
-    _build.launch(entry, hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
-    return counts.to(torch.float32)
+    return hit.contiguous(), frame.contiguous()
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

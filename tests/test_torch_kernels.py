@@ -7,6 +7,7 @@ equal the JAX package's kernel exactly (Pallas in interpret mode, as the
 package's own tests run it).
 """
 
+import contextlib
 import ctypes
 import re
 
@@ -220,6 +221,8 @@ def test_launch_appends_the_stream_and_raises_on_an_error_code(monkeypatch):
     entries = {"sgtd_ok": lambda *a: calls.append(a) or 0, "sgtd_bad": lambda *a: 700}
     monkeypatch.setattr(_build, "entry_points", lambda: entries)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 1, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
     _build.launch("sgtd_ok", torch.device("cuda", 1), 5, 6)
     assert calls == [(5, 6, 1001)]
     with pytest.raises(RuntimeError, match="sgtd_bad: CUDA error 700"):
