@@ -78,9 +78,8 @@ Phases (any failure ends the run with a non-zero exit):
    process (``wrapper_turns``: host cost, and B1's and B6's synchronized
    calls at their bench shapes); and the B1, B6, B2, B3, B4, B7, B5 and
    B8 kernel bodies of every built library are timed in turns on the same
-   inputs (B1 each with its own contract, also with what its wrapper runs
-   around it on the device, at the bench shape, one query's and, in phase
-   4, every chunk's real inputs: ``votes_turns``; B6 at f_pad 5,000 and
+   inputs (B1 at the bench shape, one query's and, in phase 4, every
+   chunk's real inputs: ``votes_turns``; B6 at f_pad 5,000 and
    20,000; B2 at the bench shape, the
    5,000-keyframe chunk's and one query's, also followed by one pass that
    reads its output; B3 at 800, 400 and 50 candidates; B4 and B7 at 64,
@@ -152,12 +151,38 @@ Phases (any failure ends the run with a non-zero exit):
    both refined runs at least 0.02 above it; fused and unfused pick the
    same frame on every query; one query under a scan cap far below its
    scan goes through ``localize_exact`` and ``_rerank_single`` and must
-   land within the success gate. Prints the three summary tables.
+   land within the success gate. Prints the three summary tables. The
+   oracle gate of tests/test_hard_workload.py:87-109: on the first 8
+   queries (HARD_EVAL_r05.json's ``oracle_subsample``) the descriptor-only
+   success rate is at least that of the port's reference oracle
+   (``eval.oracle``, plain Python on the host, run in a worker process
+   beside phases 5-8 and read after phase 8).
+8. The CLI on files: phase 3's bench world written to a temporary
+   directory as graph JSONs and .bin scans of the valid points of phase
+   4's 4,096-point renders (``write_cli_world``), then ``python -m
+   sgtd_tpu_torch.cli localize`` in subprocesses with ``CLI_FLAGS`` and
+   ``--map-artifacts``, ``--engine gicp`` and ``--engine vgicp`` side by
+   side, twice each (the first run builds and saves the artifacts, the
+   second loads them). Gates: exit 0, total 64, zero TRUNC_SCAN under the
+   CLI's config, GICP success rate >= 0.95, VGICP success rate at least
+   the JAX reference CLI's on the same files (``REFERENCE_CLI_VGICP_SR``)
+   less 1/64, each load run's summary equal to its build run's on every
+   key that holds no time, the native loader built. In process, with the
+   CLI's readers and cloud loaders: the map artifacts with voxel maps
+   built (seconds), saved and loaded (seconds, equal fields); ``evaluate``
+   with GICP equal to the CLI's summary, every kernel of its path
+   launched; ``evaluate`` with VGICP (B1-B3 and B5 launched, B4 and B7
+   not; steady-state scans/s); chunk 0's VGICP rerank stage by stage
+   (covariances, voxel-map gather, LM loop) equal to ``localize_refined``
+   and, with B5 patched to its plain version, the same pick, refined and
+   found with poses within 5e-3 m and 1e-3 rad; the DB through
+   ``save_database`` and ``load_database`` with equal fields.
 
 After the last phase one ``torch.profiler`` session counts the device
 activities of one call of B1's wrapper at the bench shape (and of the
 first baseline's): this tree's must be one (with ``--kernels-only``, at
-the end of phase 2). No ``jax`` or ``sgtd_tpu`` module may be loaded. The
+the end of phase 2). No ``jax`` or ``sgtd_tpu`` module may be loaded, with
+the CLI, ``io``, ``native``, ``refine.vgicp`` and ``eval.oracle`` imported. The
 line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -165,12 +190,15 @@ line before the last holds the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import hashlib
+import importlib
 import importlib.util
 import inspect
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -215,6 +243,9 @@ REFERENCE_5K = {
 HARD_SEED, HARD_MOTIFS, HARD_UNIQUE = 411, 2, 2
 HARD_OBS = dict(center_noise_m=0.45, dropout=0.35, label_corrupt_rate=0.15)
 HARD_LEAF, HARD_GATE_M, HARD_RERANK_K = 0.5, 1.0, 10
+# The oracle gate's subsample: the first 8 queries, as HARD_EVAL_r05.json's
+# oracle_subsample.
+ORACLE_QUERIES = 8
 REFERENCE_HARD = {
     "rows": 310944,
     "success_rate": 0.890625,
@@ -1443,58 +1474,28 @@ def turns_ms_of(fns, launches: int) -> list:
     return [statistics.median(t) for t in acc]
 
 
-def votes_contract(lib, dev) -> str:
-    """How a library's ``sgtd_frame_votes`` returns its counts, found by
-    running it once: ``float32`` (written whole, this tree's) or ``int32``
-    (added into int32 counts the caller zeroed: the tally of three launches
-    in trees before the float32 contract, kept so that this tree can be
-    held to them in turns)."""
-    hit = torch.ones((1, 64), dtype=torch.bool, device=dev)
-    frame = torch.full((1, 64), 3, dtype=torch.int32, device=dev)
-    buf = torch.zeros((1, 8), dtype=torch.int32, device=dev)
-    if lib.sgtd_frame_votes(hit.data_ptr(), frame.data_ptr(), buf.data_ptr(), 1, 64, 8,
-                            torch.cuda.current_stream(dev).cuda_stream):
-        fail("votes_contract: sgtd_frame_votes failed to launch")
-    if int(buf[0, 3]) == 64:
-        return "int32"
-    if float(buf.view(torch.float32)[0, 3]) == 64.0:
-        return "float32"
-    fail(f"votes_contract: sgtd_frame_votes wrote neither contract's counts: {buf.tolist()}")
-
-
 def votes_turns(libs: list, what: str, hit, frame, f_pad: int, card: str) -> None:
     """B1's kernel bodies of every library of ``libs`` ((name, ctypes
-    library, contract) each), in turns on these inputs, each with its own
-    contract, and each with what a call of its wrapper runs on the device
-    around it (the int32 contract: a memset of the counts before and a
-    conversion to float32 after). Every library's counts must equal the
-    plain version's."""
+    library) each), in turns on these inputs. Every library's counts must
+    equal the plain version's."""
     from sgtd_tpu_torch.ops import probe
 
     b, l = hit.shape
     want = probe.frame_votes_plain(hit, frame, f_pad)
     stream = torch.cuda.current_stream(hit.device).cuda_stream
-    bodies, whole = [], []
-    for name, lib, contract in libs:
-        out = torch.empty((b, f_pad), dtype=torch.float32 if contract == "float32" else torch.int32, device=hit.device)
-        floats = torch.empty((b, f_pad), dtype=torch.float32, device=hit.device)
+    bodies = []
+    for name, lib in libs:
+        out = torch.empty((b, f_pad), dtype=torch.float32, device=hit.device)
         body = lambda lib=lib, out=out: lib.sgtd_frame_votes(hit.data_ptr(), frame.data_ptr(), out.data_ptr(), b, l,
                                                              f_pad, stream)
-        if contract == "float32":
-            full, result = body, out
-        else:
-            full = lambda body=body, out=out, floats=floats: (out.zero_(), body(), floats.copy_(out))
-            result = floats
-        full()
-        if not torch.equal(result, want):
+        body()
+        if not torch.equal(out, want):
             fail(f"baseline compare: B1 frame_votes {what}: {name} differs from the plain version")
         bodies.append(body)
-        whole.append(full)
-    names = [n for n, _, _ in libs]
+    names = [n for n, _ in libs]
     fmt = lambda ms: ", ".join(f"{n} {t:.4f} ms" for n, t in zip(names, ms))
     log(f"   B1 frame_votes {what}, kernel bodies in turns, equal counts: {fmt(turns_ms_of(bodies, 50))} "
         f"(CUDA events) [{card}]")
-    log(f"      with what each call runs around its body on the device: {fmt(turns_ms_of(whole, 50))}")
 
 
 def baseline_run(tree: str) -> dict:
@@ -1592,8 +1593,8 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool):
     through the trees and back, with equal outputs required (B2: on valid
     slots; B7: the per-point b and w and n_valid equal, the largest gap of
     the other outputs printed). Returns the first tree's ``ops/probe.py``
-    and every library's (name, ctypes library, B1 contract), this tree's
-    last, through which phase 4 times B1 on its real inputs in turns."""
+    and every library's (name, ctypes library), this tree's last, through
+    which phase 4 times B1 on its real inputs in turns."""
     import ctypes
 
     from sgtd_tpu_torch.ops import _build, expand, gicp, verify
@@ -1629,11 +1630,10 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool):
     old_probe = wrapper_turns(dev, card, trees[0])
     rng_b23 = np.random.default_rng(SEED + 4)  # B2's and B3's own, so that the others' inputs stay what they were
 
-    # B1 at the bench shape and one query's, every library with its own
-    # contract (phase 4 adds its real inputs); B6 at the 5,000-keyframe
+    # B1 at the bench shape and one query's (phase 4 adds its real
+    # inputs); B6 at the 5,000-keyframe
     # chunk's shape for f_pad 5,000 and 20,000, equal counts required.
-    votes_libs = [(name, lib, votes_contract(lib, dev)) for name, lib in zip(names, libs)]
-    log("   B1 contracts: " + ", ".join(f"{n} {c}" for n, _, c in votes_libs))
+    votes_libs = list(zip(names, libs))
     rng_b16 = np.random.default_rng(SEED + 6)
     for b in (CHUNK, 1):
         votes_turns(votes_libs, f"({b}, 98304) f_pad 200, phase 2's draw",
@@ -2385,16 +2385,342 @@ def hard_world_inputs():
     return cfg, maps, queries, q_fn, m_fn, gicp
 
 
+# Phase 8: the CLI on files of the bench world. The JAX reference's CLI
+# (sgtd_tpu.cli localize with CLI_FLAGS and --engine vgicp, on the CPU) on
+# the files of write_cli_world gives this success rate;
+# tests/test_torch_cli.py's slow test_reference_cli_vgicp computes it again
+# from sgtd_tpu.
+CLI_FLAGS = ("--enable-gicp", "--batch-size", str(CHUNK), "--rerank-k", str(RERANK_K), "--leaf-size", "3.0",
+             "--gicp-max-points", str(CLOUD_PTS))
+REFERENCE_CLI_VGICP_SR = 1.0
+# The summary keys that do not hold a time.
+ACCURACY_KEYS = ("total", "success_rate", "rmse_trans_m", "rmse_rot_deg", "mean_trans_m", "mean_rot_deg",
+                 "recall_at_1", "recall_at_5", "recall_at_10", "db_rows")
+
+
+def write_cli_world(root: str) -> dict:
+    """The bench world of phase 3 (seed 2026, 200 keyframes, 64 queries,
+    centre noise 0.05 m, dropout 0.1, label corruption 0.05) as the files a
+    user hands the CLI, under ``root``: graph JSONs (``io.graph_json``) and
+    .bin scans (``io.readers.write_bin``) of the valid points of phase 4's
+    4,096-point planar renders (rng 77: the keyframes, then the queries).
+    Returns the four directories by CLI flag name."""
+    from sgtd_tpu_torch.config import SGTDConfig
+    from sgtd_tpu_torch.data.synthetic import make_map_and_queries, render_planar_cloud
+    from sgtd_tpu_torch.io.graph_json import write_graph_json
+    from sgtd_tpu_torch.io.readers import write_bin
+
+    maps, queries, world = make_map_and_queries(
+        SGTDConfig(), seed=SEED, num_map_frames=NUM_MAP, num_queries=NUM_QUERIES,
+        center_noise_m=0.05, dropout=0.1, label_corrupt_rate=0.05,
+    )
+    rng = np.random.default_rng(77)
+    dirs = {}
+    for side, graphs, poses in (("map", maps, world.map_poses), ("query", queries, world.query_poses)):
+        dirs[f"{side}_graphs"], dirs[f"{side}_scans"] = (os.path.join(root, f"{side}_{k}") for k in ("graphs", "scans"))
+        os.makedirs(dirs[f"{side}_graphs"])
+        os.makedirs(dirs[f"{side}_scans"])
+        for i, (g, p) in enumerate(zip(graphs, poses)):
+            write_graph_json(os.path.join(dirs[f"{side}_graphs"], f"{i:06d}.json"), g)
+            cloud, mask = render_planar_cloud(world, p, rng, max_points=CLOUD_PTS)
+            write_bin(os.path.join(dirs[f"{side}_scans"], f"{i:06d}.bin"), cloud[mask])
+    return dirs
+
+
+def cli_args(dirs: dict, engine: str, artifacts: str) -> list:
+    """``localize``'s arguments on ``write_cli_world``'s files."""
+    return ["localize", "--map-graphs", dirs["map_graphs"], "--query-graphs", dirs["query_graphs"],
+            "--map-scans", dirs["map_scans"], "--query-scans", dirs["query_scans"], *CLI_FLAGS,
+            "--engine", engine, "--map-artifacts", artifacts]
+
+
+def vgicp_stages(db, graphs, q_clouds, q_masks, vmaps, cfg, rerank_k: int):
+    """``localize_refined`` with the VGICP engine on prebuilt voxel maps, one
+    chunk, stage by stage through the port's public functions, synchronized
+    after each: (RefinedResult, pick, ms per stage)."""
+    from sgtd_tpu_torch.desc.triangles import build_descriptors
+    from sgtd_tpu_torch.geom import se3
+    from sgtd_tpu_torch.match.pipeline import RefinedResult, rank_candidates, rerank_pick
+    from sgtd_tpu_torch.match.search import candidate_search
+    from sgtd_tpu_torch.match.verify import verify_candidates
+    from sgtd_tpu_torch.refine.gicp import point_covariances
+    from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, vgicp_align
+
+    ms = {}
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def tick(name):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ms[name] = (t[-1] - t[-2]) * 1e3
+
+    query = build_descriptors(graphs, cfg.desc, cfg.caps)
+    cand = candidate_search(db, query, cfg.desc, cfg.search, cfg.caps)
+    res = rank_candidates(db, query, cand, verify_candidates(db, query, cand, cfg.search), cfg)
+    tick("descriptors_search_verify")
+    src_cov = point_covariances(q_clouds, q_masks, cfg.gicp)
+    tick("query_covariances")
+    frames_k = res.frames[:, :rerank_k].long()
+    vm_k = GaussianVoxelMap(*(x[frames_k] for x in vmaps))
+    tick("voxel_map_gather")
+    inits = se3.rt_to_mat(res.rot[:, :rerank_k], res.trans[:, :rerank_k])
+    per_k = lambda x: x[:, None].expand((x.shape[0], rerank_k) + x.shape[1:])
+    out = vgicp_align(per_k(q_clouds), per_k(q_masks), None, None, inits, cfg.gicp, src_cov=per_k(src_cov),
+                      voxel_map=vm_k)
+    tick("lm_loop")
+    pick, use, refined = rerank_pick(
+        out.fitness_gated, out.inlier_frac, db.frame_poses[frames_k] @ out.transform,
+        res.poses[:, :rerank_k], res.found, cfg.gicp,
+    )
+    rows = torch.arange(pick.shape[0], device=pick.device)
+    result = RefinedResult(
+        pose=torch.where(use[:, None, None], refined[rows, pick], res.poses[:, 0]),
+        refined=use, fitness=out.fitness[rows, pick], result=res,
+    )
+    tick("pick")
+    return result, pick, ms
+
+
+def cli_on_files(dev, card: str) -> int:
+    """Phase 8: the CLI on files. Returns B5's launches on the VGICP path
+    (the in-process ``evaluate`` that mirrors the CLI's VGICP run)."""
+    import tempfile
+
+    from sgtd_tpu_torch import native
+    from sgtd_tpu_torch.config import SGTDConfig
+    from sgtd_tpu_torch.db.artifacts import build_map_artifacts, load_map_artifacts, save_map_artifacts
+    from sgtd_tpu_torch.db.database import DescriptorDB, load_database, save_database
+    from sgtd_tpu_torch.eval import runner
+    from sgtd_tpu_torch.graph.types import stack_graphs
+    from sgtd_tpu_torch.io import readers
+    from sgtd_tpu_torch.io.graph_json import read_graph_dir
+    from sgtd_tpu_torch.match.pipeline import localize, localize_refined
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN
+    from sgtd_tpu_torch.ops import nn
+    from sgtd_tpu_torch.ops.voxel import load_query_cloud
+    from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, build_voxel_maps
+
+    if not native.native_available():
+        fail("the native loader (sgtd_tpu_torch/native/loader.cpp) did not build")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="sgtd_cli_") as root:
+        t0 = time.perf_counter()
+        dirs = write_cli_world(root)
+        log(f"CLI world: {NUM_MAP} keyframe and {NUM_QUERIES} query graph JSONs and .bin scans written in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+
+        # The CLI in subprocesses, GICP and VGICP side by side: first the
+        # runs that build and save their map artifacts, then (beside the
+        # untimed checks below) the runs that load them.
+        summaries = {}
+
+        def start(run):
+            procs = {
+                engine: subprocess.Popen(
+                    [sys.executable, "-m", "sgtd_tpu_torch.cli",
+                     *cli_args(dirs, engine, os.path.join(root, f"artifacts_{engine}.npz"))],
+                    cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                for engine in ("gicp", "vgicp")
+            }
+            return run, procs, time.perf_counter()
+
+        def finish(started):
+            run, procs, t0 = started
+            for engine, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    fail(f"CLI localize --engine {engine} ({run} run): exit {proc.returncode}\n{err[-3000:]}")
+                summaries[engine, run] = out = json.loads(out)
+                log(f"CLI {engine} {run}: " + ", ".join(f"{k} {v}" for k, v in out.items()) + f" [{card}]")
+            log(f"CLI localize --engine gicp and --engine vgicp, {run} runs side by side: "
+                f"{time.perf_counter() - t0:.2f} s of wall time")
+
+        finish(start("build"))
+        sr_g, sr_v = summaries["gicp", "build"]["success_rate"], summaries["vgicp", "build"]["success_rate"]
+        for engine in ("gicp", "vgicp"):
+            if summaries[engine, "build"]["total"] != NUM_QUERIES:
+                fail(f"CLI {engine}: total {summaries[engine, 'build']['total']}, not {NUM_QUERIES}")
+        if sr_g < SR_GATE:
+            fail(f"CLI gicp: success rate {sr_g} below {SR_GATE}")
+        if sr_v < REFERENCE_CLI_VGICP_SR - 1 / NUM_QUERIES:
+            fail(f"CLI vgicp: success rate {sr_v} below the JAX reference's {REFERENCE_CLI_VGICP_SR} less 1/{NUM_QUERIES}")
+
+        # In process, with the CLI's readers and cloud loaders.
+        base = SGTDConfig()
+        gcfg = dataclasses.replace(base.gicp, enable=True, leaf_size=3.0, max_points=CLOUD_PTS)
+        maps = read_graph_dir(dirs["map_graphs"], base, dev)
+        queries = read_graph_dir(dirs["query_graphs"], base, dev)
+        index = runner.build_map_index(maps, base.replace(gicp=gcfg), dev)
+        chunks = [stack_graphs(queries[i : i + CHUNK], dev) for i in range(0, NUM_QUERIES, CHUNK)]
+        trunc = torch.cat([localize(index.db, q, index.config).truncated for q in chunks])
+        n_trunc = int(((trunc & TRUNC_SCAN) != 0).sum())
+        if n_trunc:
+            fail(f"CLI world: {n_trunc} queries set TRUNC_SCAN under the CLI's config")
+        q_bins = readers.list_scans(dirs["query_scans"], ".bin")
+        m_bins = readers.list_scans(dirs["map_scans"], ".bin")
+        t0 = time.perf_counter()
+        with native.PrefetchingLoader(q_bins) as loader:
+            q_clouds = [load_query_cloud(loader.get(i)[0], 3.0, CLOUD_PTS) for i in range(len(q_bins))]
+        loader_s = time.perf_counter() - t0
+        m_fn = lambda fid: load_query_cloud(readers.read_bin(m_bins[fid])[:, :3], 0.0, CLOUD_PTS)
+
+        vcfg = index.config.replace(gicp=dataclasses.replace(gcfg, engine="vgicp"))
+        f_pad = index.db.frame_poses.shape[0]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = build_map_artifacts(m_fn, len(maps), vcfg.gicp, f_pad=f_pad, device=dev)
+        torch.cuda.synchronize()
+        build_s, build_b5 = time.perf_counter() - t0, read_counts()[4]
+        path = os.path.join(root, "artifacts.npz")
+        save_map_artifacts(path, art, vcfg.gicp)
+        t0 = time.perf_counter()
+        loaded = load_map_artifacts(path, expect_frames=f_pad, expect_gicp=vcfg.gicp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = [(f, getattr(art, f), getattr(loaded, f)) for f in ("clouds", "masks", "covs")]
+        pairs += [(f"vmaps.{f}", getattr(art.vmaps, f), getattr(loaded.vmaps, f)) for f in GaussianVoxelMap._fields]
+        for name, a, b in pairs:
+            if not torch.equal(a, b):
+                fail(f"map artifacts: {name} differs after save and load")
+        log(f"map artifacts with voxel maps ({tuple(art.vmaps.keys.shape)} voxels): built in {build_s:.3f} s with "
+            f"the host's .bin reads (B5: {build_b5} launches), loaded in {load_s:.3f} s, equal after save and "
+            f"load; the query loader (native: {native.native_available()}) read and downsampled "
+            f"{len(q_bins)} scans in {loader_s:.3f} s [{card}]")
+
+        # Untimed checks while the load runs go on.
+        load_runs = start("load")
+        kw = dict(batch_size=CHUNK, query_cloud_fn=lambda i: q_clouds[i], rerank_k=RERANK_K, map_artifacts=art)
+        reset_counts()
+        out_g = runner.evaluate(index, queries, **kw)
+        counts_g = read_counts()
+        want = summaries["gicp", "build"]
+        if any(out_g[k] != want[k] for k in ACCURACY_KEYS):
+            fail(f"in-process evaluate (gicp) {out_g} differs from the CLI's {want}")
+        log(f"in-process evaluate, gicp: equal to the CLI's summary on {ACCURACY_KEYS}; launches (B1-B8) {counts_g}")
+        if min(counts_g[:5]) <= 0:
+            fail(f"in-process evaluate (gicp): a kernel of the path was never launched: {counts_g}")
+
+        # Chunk 0 stage by stage, against localize_refined; then with B5
+        # patched to its plain version.
+        qc = torch.from_numpy(np.stack([c for c, _ in q_clouds[:CHUNK]])).to(dev)
+        qm = torch.from_numpy(np.stack([m for _, m in q_clouds[:CHUNK]])).to(dev)
+        args = (index.db, chunks[0], qc, qm, art.vmaps, vcfg, RERANK_K)
+        staged, pick, _ = vgicp_stages(*args)
+        whole = localize_refined(index.db, chunks[0], qc, qm, art.clouds, art.masks, None, vcfg, RERANK_K,
+                                 map_vmaps=art.vmaps)
+        dt, dr = pose_gap(staged.pose, whole.pose)
+        if dt > POS_TOL_M or dr > ROT_TOL_RAD or not torch.equal(staged.refined, whole.refined):
+            fail(f"VGICP chunk 0 stage by stage differs from localize_refined ({dt} m, {dr} rad)")
+        with mock.patch.object(nn, "knn", nn.knn_plain):
+            plain, plain_pick, _ = vgicp_stages(*args)
+        dt, dr = pose_gap(plain.pose, staged.pose)
+        for name, a, b in (("pick", plain_pick, pick), ("refined", plain.refined, staged.refined),
+                           ("found", plain.result.found, staged.result.found)):
+            if not torch.equal(a, b):
+                fail(f"VGICP plain-version (B5) rerun differs in {name}")
+        if dt > POS_TOL_M or dr > ROT_TOL_RAD:
+            fail(f"VGICP plain-version (B5) rerun poses differ by {dt} m / {dr} rad")
+        log(f"VGICP plain-version (B5) rerun of chunk 0: pick, refined, found equal; poses within {dt:.3e} m / "
+            f"{dr:.3e} rad (gates {POS_TOL_M} m, {ROT_TOL_RAD} rad)")
+
+        # The DB through the port's save_database and load_database.
+        path = os.path.join(root, "db.npz")
+        save_database(path, index.db)
+        back = load_database(path, dev)
+        differ = [f for f in DescriptorDB._fields if not torch.equal(getattr(back, f), getattr(index.db, f))]
+        if differ:
+            fail(f"descriptor DB: {differ} differ after save_database and load_database")
+        log(f"descriptor DB ({index.report.num_rows} rows): all {len(DescriptorDB._fields)} fields equal after "
+            f"save_database and load_database ({os.path.getsize(path)} bytes)")
+
+        finish(load_runs)
+        for engine in ("gicp", "vgicp"):
+            build, load = summaries[engine, "build"], summaries[engine, "load"]
+            if list(build) != list(load) or any(build[k] != load[k] for k in ACCURACY_KEYS):
+                fail(f"CLI {engine}: the load run's summary {load} differs from the build run's {build}")
+        log(f"CLI: build and load runs equal on {ACCURACY_KEYS}; SR gicp {sr_g:.4f} (gate {SR_GATE}), vgicp "
+            f"{sr_v:.4f} (the JAX reference's {REFERENCE_CLI_VGICP_SR:.4f} less 1/{NUM_QUERIES} is the gate)")
+
+        # Timed, with the card and the host to this process again.
+        index_v = dataclasses.replace(index, config=vcfg)
+        reset_counts()
+        out_v = runner.evaluate(index_v, queries, **kw)
+        counts_v = read_counts()
+        log(f"in-process evaluate, vgicp: SR {out_v['success_rate']:.4f} (CLI {sr_v:.4f}), "
+            f"{1e3 / out_v['mean_time_ms']:.2f} scans/s steady state (chunk {CHUNK}, rerank_k {RERANK_K}, "
+            f"synchronized per chunk), launches (B1-B8) {counts_v} [{card}]")
+        if min(counts_v[i] for i in (0, 1, 2, 4)) <= 0 or counts_v[3] or counts_v[6]:
+            fail(f"in-process evaluate (vgicp): B1-B3 and B5 must launch, B4 and B7 not: {counts_v}")
+        if any(out_v[k] != summaries["vgicp", "build"][k] for k in ACCURACY_KEYS):
+            log(f"   note: the in-process vgicp summary differs from the CLI's: {out_v}")
+        splits = [vgicp_stages(*args)[2] for _ in range(3)]
+        split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+        log("VGICP chunk stage split, ms (median of 3, synchronized per stage): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f"; total {sum(split.values()):.2f} [{card}]")
+        # What PERF.md predicts: the LM loop of the same chunk under
+        # DIRECT7 and DIRECT27, and the voxel maps alone in either mode.
+        for ns in ("direct7", "direct27"):
+            c = vcfg.replace(gicp=dataclasses.replace(vcfg.gicp, neighbor_search=ns))
+            ms = statistics.median(vgicp_stages(index.db, chunks[0], qc, qm, art.vmaps, c, RERANK_K)[2]["lm_loop"]
+                                   for _ in range(3))
+            log(f"VGICP chunk LM loop with {ns}: {ms:.2f} ms (median of 3) [{card}]")
+        for mode in ("additive", "multiplicative"):
+            mcfg = dataclasses.replace(vcfg.gicp, voxel_mode=mode)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(0, f_pad, 64):
+                    build_voxel_maps(art.clouds[i : i + 64], art.masks[i : i + 64], art.covs[i : i + 64], mcfg)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            log(f"voxel maps of {f_pad} keyframes alone, {mode}: {statistics.median(times):.4f} s (median of 3; "
+                f"batches of 64 keyframes, covariances given) [{card}]")
+    return counts_v[4]
+
+
+def oracle_subsample(n_sub: int) -> list:
+    """The port's reference oracle (``eval.oracle``: the reference's
+    SearchLoop transliterated in NumPy, float32 with the 1/256 fixed-point
+    filter, as tools/hard_eval.py runs it) on the hard world: the DB of
+    every keyframe, then each of the first ``n_sub`` queries. Returns each
+    query's (best frame, within the success gate). Host only; ``main``
+    runs it in a worker process beside phases 5-8."""
+    from sgtd_tpu_torch.eval.metrics import rpe
+    from sgtd_tpu_torch.eval.oracle import OracleManager
+
+    cfg, maps, queries, *_ = hard_world_inputs()
+    mgr = OracleManager(cfg.desc, cfg.search, dtype=np.float32, fixed_point_filter=True)
+    for g in maps:
+        mgr.add_stds(mgr.build(g.centers[g.mask], g.labels[g.mask]))
+    out = []
+    for g in queries[:n_sub]:
+        best_f, _, (rot, t), _ = mgr.search_loop(mgr.build(g.centers[g.mask], g.labels[g.mask]))
+        ok = False
+        if best_f >= 0:
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = rot, t
+            te, re_ = rpe(np.asarray(g.pose), np.asarray(maps[best_f].pose) @ T)
+            ok = bool(te < cfg.success_trans_m and re_ < cfg.success_rot_deg)
+        out.append((int(best_f), ok))
+    return out
+
+
 def found_frames_sha256(found, best_frame) -> str:
     """SHA-256 of the queries' found (uint8) and best_frame (int32)."""
     return hashlib.sha256(np.asarray(found, np.uint8).tobytes()
                           + np.asarray(best_frame, np.int32).tobytes()).hexdigest()
 
 
-def hard_world(dev, card: str) -> None:
+def hard_world(dev, card: str) -> list:
     """Phase 7: ``evaluate`` on the hard world, descriptor-only, refined
     unfused and refined fused, and one query through the TRUNC_SCAN
-    fallback."""
+    fallback. Returns, for the first ``ORACLE_QUERIES`` queries, whether
+    the descriptor-only pipeline's pose is within the success gate (the
+    other side of ``oracle_gate``)."""
     from sgtd_tpu_torch.db.artifacts import build_map_artifacts
     from sgtd_tpu_torch.eval import runner
     from sgtd_tpu_torch.eval.metrics import rpe
@@ -2430,6 +2756,9 @@ def hard_world(dev, card: str) -> None:
     log(f"hard world descriptor leg: {got}; TRUNC_SCAN queries {int(((trunc & TRUNC_SCAN) != 0).sum())}")
     if got != REFERENCE_HARD:
         fail(f"hard world: the descriptor leg {got} differs from the JAX reference's {REFERENCE_HARD}")
+    within = lambda i: bool(found[i]) and (lambda e: e[0] < cfg.success_trans_m and e[1] < cfg.success_rot_deg)(
+        rpe(np.asarray(queries[i].pose), res[i // CHUNK].poses[i % CHUNK, 0].cpu().numpy()))
+    pipeline_ok = [within(i) for i in range(ORACLE_QUERIES)]
     sr_desc = out_desc["success_rate"]
     if not 0.80 <= sr_desc < 1.0:
         fail(f"hard world: descriptor-only success rate {sr_desc} outside [0.80, 1.0)")
@@ -2477,10 +2806,7 @@ def hard_world(dev, card: str) -> None:
 
     # One query that the descriptor leg got right, under a scan cap far
     # below its scan: localize_exact, then _rerank_single, on the card.
-    ok = [i for i in range(NUM_QUERIES) if found[i]
-          and (lambda e: e[0] < cfg.success_trans_m and e[1] < cfg.success_rot_deg)(
-              rpe(np.asarray(queries[i].pose), res[i // CHUNK].poses[i % CHUNK, 0].cpu().numpy()))]
-    qi = ok[0]
+    qi = next(i for i in range(NUM_QUERIES) if within(i))
     capped = dataclasses.replace(index, config=index.config.replace(
         caps=dataclasses.replace(index.config.caps, max_scan_slots=1024)))
     flagged = localize(capped.db, stack_graphs(queries[qi : qi + 1], dev), capped.config).truncated
@@ -2495,6 +2821,23 @@ def hard_world(dev, card: str) -> None:
              f"x{rerank.call_count}, success rate {out['success_rate']}")
     log(f"hard world fallback, query {qi} under a 1,024-slot cap: TRUNC_SCAN set, localize_exact and "
         f"_rerank_single ran once each, pose error {out['mean_trans_m']:.4f} m / {out['mean_rot_deg']:.4f} deg")
+    return pipeline_ok
+
+
+def oracle_gate(oracle, pipeline_ok: list) -> None:
+    """Phase 7's gate of tests/test_hard_workload.py:87-109 on the
+    subsample of HARD_EVAL_r05.json's oracle_subsample: the port's
+    descriptor-only success rate on the first ``ORACLE_QUERIES`` hard-world
+    queries is at least the port oracle's (``oracle``: the future of
+    ``oracle_subsample``)."""
+    t0 = time.perf_counter()
+    frames, oracle_ok = zip(*oracle.result())
+    n = len(pipeline_ok)
+    log(f"hard world oracle (eval.oracle, a worker process; waited {time.perf_counter() - t0:.1f} s for it): best "
+        f"frames {list(frames)}, SR {sum(oracle_ok) / n:.4f}; pipeline SR {sum(pipeline_ok) / n:.4f} on the same "
+        f"{n} queries")
+    if sum(pipeline_ok) < sum(oracle_ok):
+        fail(f"hard world: pipeline SR {sum(pipeline_ok) / n} below the oracle's {sum(oracle_ok) / n}")
 
 
 def ptxas_usage(text: str) -> list:
@@ -2579,11 +2922,18 @@ def main() -> None:
     b8_launches, ctx = main_path(dev, card)
     launches, map_knn_launches, *refined = refined_path(dev, card, *ctx, votes_libs=votes_libs)
     del ctx
-    b6_launches = large_map(dev, card, args.scale_frames)
-    b7_launches = fused_path(dev, card, *refined)
-    del refined
-    torch.cuda.empty_cache()
-    hard_world(dev, card)
+    # Phase 7's oracle (plain Python on the host, about a minute on one of
+    # the host's cores) runs in a worker process of its own beside phases
+    # 5-8 and is read after phase 8.
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oracle = pool.submit(oracle_subsample, ORACLE_QUERIES)
+        b6_launches = large_map(dev, card, args.scale_frames)
+        b7_launches = fused_path(dev, card, *refined)
+        del refined
+        torch.cuda.empty_cache()
+        pipeline_ok = hard_world(dev, card)
+        b5_vgicp_launches = cli_on_files(dev, card)
+        oracle_gate(oracle, pipeline_ok)
     # Launches on the path that runs each kernel: B1-B5 the refined main
     # path (phase 4), B6 the large map (phase 5), B7 the fused refined
     # path (phase 6); B8, which no module calls, the row-gather drive at
@@ -2592,9 +2942,13 @@ def main() -> None:
     for rec, n in zip(records, launches):
         rec["launches"] = n
     records[4]["map"]["launches"] = map_knn_launches
+    records[4]["vgicp_launches"] = b5_vgicp_launches
     # After every timed phase, so that none runs under or after a
     # profiling session.
     log_frame_votes_activities(dev, card, old_probe)
+    for name in ("cli", "io.readers", "io.graph_json", "io.config_yaml", "native", "refine.vgicp", "eval.oracle",
+                 "eval.plotting"):
+        importlib.import_module(f"sgtd_tpu_torch.{name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:
         fail(f"modules of JAX or of the JAX package were loaded: {loaded}")

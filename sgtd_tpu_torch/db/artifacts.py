@@ -5,13 +5,10 @@ Keyframe clouds are pose-independent map data, so their plane-regularized
 GICP covariances are computed once at map build, kept beside the DB
 ``.npz`` and gathered per candidate at query time: the query path does no
 per-query target covariance work. ``MapArtifacts`` carries, per keyframe:
-the padded cloud, its mask and its point covariances. The file format
-(v2) is the reference's: a file written by either package loads in the
-other.
-
-The Gaussian voxel maps of the VGICP engine are not ported yet:
-``vmaps`` is always None here, building them raises, and a file that
-carries them loads without them.
+the padded cloud, its mask, its point covariances and, for the VGICP
+engine, its Gaussian voxel map (``refine.vgicp.build_voxel_maps``). The
+file format (v2, voxel maps as ``vmap_*`` fields) is the reference's: a
+file written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -23,6 +20,7 @@ import torch
 
 from sgtd_tpu_torch.config import GicpConfig
 from sgtd_tpu_torch.refine.gicp import point_covariances
+from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, build_voxel_maps
 
 ARTIFACTS_FORMAT_VERSION = 2
 
@@ -41,7 +39,7 @@ class MapArtifacts(NamedTuple):
     clouds: torch.Tensor  # (F, P, 3) float32
     masks: torch.Tensor  # (F, P) bool
     covs: torch.Tensor  # (F, P, 3, 3) float32
-    vmaps: Optional[object]  # the VGICP voxel maps; None until they are ported
+    vmaps: Optional[GaussianVoxelMap]  # stacked on a leading F axis, or None
 
 
 def validate_map_artifacts(art: MapArtifacts, db, gcfg: GicpConfig) -> None:
@@ -71,20 +69,16 @@ def build_map_artifacts(
     batch: int = 64,
     device: torch.device | str = "cuda",
 ) -> MapArtifacts:
-    """All per-keyframe artifacts, the covariances in batches of ``batch``
-    frames (kernel B5 on a card).
+    """All per-keyframe artifacts, the covariances (kernel B5 on a card)
+    and voxel maps in batches of ``batch`` frames.
 
     map_cloud_fn(frame_id) -> (points (P, 3), mask (P,)) on the host.
     ``f_pad``: pad the frame axis to this count (empty clouds) so the
     tensors align with the DB's padded ``frame_poses``. ``with_vmaps``
-    defaults to (engine == "vgicp") and raises while VGICP is unported.
+    defaults to (engine == "vgicp").
     """
     if with_vmaps is None:
         with_vmaps = cfg.engine == "vgicp"
-    if with_vmaps:
-        raise NotImplementedError(
-            "voxel maps are not ported yet (ROADMAP queue 1 item 6, refine/vgicp.py)"
-        )
     clouds, masks = zip(*(map_cloud_fn(i) for i in range(num_frames)))
     clouds = np.stack([np.asarray(c) for c in clouds]).astype(np.float32)
     masks = np.stack([np.asarray(m) for m in masks]).astype(bool)
@@ -94,11 +88,13 @@ def build_map_artifacts(
         masks = np.pad(masks, ((0, pad), (0, 0)))
     clouds = torch.from_numpy(clouds).to(device)
     masks = torch.from_numpy(masks).to(device)
-    covs = torch.cat([
-        point_covariances(clouds[i : i + batch], masks[i : i + batch], cfg)
-        for i in range(0, clouds.shape[0], batch)
-    ])
-    return MapArtifacts(clouds=clouds, masks=masks, covs=covs, vmaps=None)
+    parts = range(0, clouds.shape[0], batch)
+    covs = torch.cat([point_covariances(clouds[i : i + batch], masks[i : i + batch], cfg) for i in parts])
+    vmaps = None
+    if with_vmaps:
+        vms = [build_voxel_maps(clouds[i : i + batch], masks[i : i + batch], covs[i : i + batch], cfg) for i in parts]
+        vmaps = GaussianVoxelMap(*(torch.cat(xs) for xs in zip(*vms)))
+    return MapArtifacts(clouds=clouds, masks=masks, covs=covs, vmaps=vmaps)
 
 
 def save_map_artifacts(path: str, art: MapArtifacts, gicp_cfg: GicpConfig | None = None) -> None:
@@ -113,6 +109,9 @@ def save_map_artifacts(path: str, art: MapArtifacts, gicp_cfg: GicpConfig | None
     }
     if gicp_cfg is not None:
         fields["gicp_fingerprint"] = np.asarray(gicp_fingerprint(gicp_cfg))
+    if art.vmaps is not None:
+        for k, v in art.vmaps._asdict().items():
+            fields[f"vmap_{k}"] = v.cpu().numpy()
     np.savez_compressed(path, **fields)
 
 
@@ -146,12 +145,14 @@ def load_map_artifacts(
                     f"{path}: artifacts were built under GICP params [{got}] "
                     f"but the current config is [{want}] — rebuild them"
                 )
-        # A file of the reference may carry vmap_* fields (the VGICP voxel
-        # maps): they are read into ``vmaps`` once VGICP is ported, and
-        # until then such a file loads with vmaps=None.
+        vmaps = None
+        if "vmap_keys" in z:
+            vmaps = GaussianVoxelMap(
+                *(torch.from_numpy(z[f"vmap_{k}"]).to(device) for k in GaussianVoxelMap._fields)
+            )
         return MapArtifacts(
             clouds=torch.from_numpy(z["clouds"]).to(device),
             masks=torch.from_numpy(z["masks"]).to(device),
             covs=torch.from_numpy(z["covs"]).to(device),
-            vmaps=None,
+            vmaps=vmaps,
         )

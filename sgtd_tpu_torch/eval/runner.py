@@ -28,6 +28,7 @@ from sgtd_tpu_torch.interop import to_numpy
 from sgtd_tpu_torch.match.pipeline import localize, localize_exact, localize_refined
 from sgtd_tpu_torch.match.search import TRUNC_SCAN
 from sgtd_tpu_torch.refine.gicp import gicp_rerank
+from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, vgicp_rerank
 
 
 @dataclasses.dataclass
@@ -107,24 +108,27 @@ def _rerank_single(index, cfg, res_one, qc, qm, art, rerank_k, best_pose):
     """Artifact rerank of ONE query (the truncation-fallback path).
 
     res_one: that query's LocalizationResult as NumPy fields without a
-    batch axis; qc (S, 3) / qm (S,) its cloud on the DB's device. As in the
-    reference, GICP refines here whenever the artifacts carry no voxel
-    maps, whatever ``cfg.gicp.engine`` says."""
+    batch axis; qc (S, 3) / qm (S,) its cloud on the DB's device. VGICP on
+    the artifacts' voxel maps with the VGICP engine; as in the reference,
+    GICP refines here whenever the artifacts carry no voxel maps, whatever
+    ``cfg.gicp.engine`` says."""
     if not bool(res_one.found):
         return best_pose
     frames_k = res_one.frames[:rerank_k].astype(np.int32)
     inits = np.tile(np.eye(4, dtype=np.float32), (rerank_k, 1, 1))
     inits[:, :3, :3] = res_one.rot[:rerank_k]
     inits[:, :3, 3] = res_one.trans[:rerank_k]
-    if cfg.gicp.engine == "vgicp" and art.vmaps is not None:
-        raise NotImplementedError(
-            "engine='vgicp' is not ported yet (ROADMAP queue 1 item 6, refine/vgicp.py)"
-        )
     fk = torch.from_numpy(frames_k).long().to(qc.device)
-    out = to_numpy(gicp_rerank(
-        qc[None], qm[None], art.clouds[fk][None], art.masks[fk][None],
-        torch.from_numpy(inits).to(qc.device)[None], cfg.gicp, tgt_covs=art.covs[fk][None],
-    ))
+    inits_t = torch.from_numpy(inits).to(qc.device)[None]
+    if cfg.gicp.engine == "vgicp" and art.vmaps is not None:
+        vm_k = GaussianVoxelMap(*(x[fk][None] for x in art.vmaps))
+        out = vgicp_rerank(qc[None], qm[None], None, None, inits_t, cfg.gicp, voxel_maps=vm_k)
+    else:
+        out = gicp_rerank(
+            qc[None], qm[None], art.clouds[fk][None], art.masks[fk][None], inits_t, cfg.gicp,
+            tgt_covs=art.covs[fk][None],
+        )
+    out = to_numpy(out)
     best = _apply_rerank_pick(
         cfg, [0], frames_k[None], out.fitness_gated, out.inlier_frac, out.transform,
         res_one.poses[None, :rerank_k], index.db.frame_poses.cpu().numpy(), [best_pose],
@@ -153,7 +157,8 @@ def evaluate(
     or a ``map_cloud_fn(frame_id) -> (points, mask)`` from which artifacts
     are built once, plus ``query_cloud_fn(i)``), every chunk runs
     ``localize_refined``: descriptor search, verification and the
-    multi-candidate GICP rerank. ``mean_time_ms`` is the steady-state
+    multi-candidate GICP or VGICP rerank (VGICP on the artifacts' voxel
+    maps where they carry them). ``mean_time_ms`` is the steady-state
     per-query cost, every chunk synchronized before the clock is read; the
     warm-up call on chunk 0 (``compile_seconds``, the reference's key: it
     also covers the kernels' build at first use) and the host-side data
@@ -166,7 +171,7 @@ def evaluate(
     acc = EvalAccumulator(cfg)
     n = len(query_graphs)
     if gt_poses is None:
-        gt_poses = [np.asarray(g.pose) for g in query_graphs]
+        gt_poses = [torch.as_tensor(g.pose).cpu().numpy() for g in query_graphs]
 
     use_gicp = (
         cfg.gicp.enable
@@ -205,9 +210,14 @@ def evaluate(
     load_s = time.time() - t0
 
     if use_gicp:
+        # VGICP on the artifacts' voxel maps where they have them; else the
+        # engine's rerank on the clouds and covariances.
+        use_vm = cfg.gicp.engine == "vgicp" and art.vmaps is not None
+        covs = None if use_vm else art.covs
+        vmaps = art.vmaps if use_vm else None
         call = lambda c: localize_refined(
-            index.db, c[0], c[2], c[3], art.clouds, art.masks, art.covs,
-            config=cfg, rerank_k=rerank_k,
+            index.db, c[0], c[2], c[3], art.clouds, art.masks, covs,
+            config=cfg, rerank_k=rerank_k, map_vmaps=vmaps,
         )
     else:
         call = lambda c: localize(index.db, c[0], cfg)

@@ -3,7 +3,8 @@
 Same padded layout as the reference: per keyframe ``max_nodes`` instance
 slots with a validity mask. ``make_graph`` stays host-side NumPy (one
 graph at a time, as the reference builds them); ``stack_graphs`` stacks a
-list on the host and moves each field to the device in one transfer.
+list of graphs (NumPy arrays, stacked on the host and moved in one
+transfer a field, or tensors, stacked where they lie) onto a device.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ def make_graph(
     labels: np.ndarray,
     pose: np.ndarray,
     max_nodes: int,
+    density: np.ndarray | None = None,
 ) -> SemanticGraph:
     """Padded SemanticGraph of NumPy arrays from variable-length host arrays.
 
     Graphs with more than ``max_nodes`` nodes keep the nodes nearest the
-    sensor, in their original order (as the reference does).
+    sensor, in their original order (as the reference does). ``density``
+    defaults to zeros.
     """
     centers = np.asarray(centers, dtype=np.float32).reshape(-1, 3)
     labels = np.asarray(labels, dtype=np.int32).reshape(-1)
@@ -49,14 +52,19 @@ def make_graph(
         order = np.argsort(np.linalg.norm(centers, axis=1), kind="stable")[:max_nodes]
         order = np.sort(order)
         centers, labels = centers[order], labels[order]
+        if density is not None:
+            density = np.asarray(density, dtype=np.float32)[order]
         n = max_nodes
     pad = max_nodes - n
     m = np.zeros(max_nodes, dtype=bool)
     m[:n] = True
+    d = np.zeros(max_nodes, dtype=np.float32)
+    if density is not None:
+        d[:n] = np.asarray(density, dtype=np.float32)[:n]
     return SemanticGraph(
         centers=np.pad(centers, ((0, pad), (0, 0))),
         labels=np.pad(labels, (0, pad)),
-        density=np.zeros(max_nodes, dtype=np.float32),
+        density=d,
         mask=m,
         pose=np.asarray(pose, dtype=np.float32).reshape(4, 4),
     )
@@ -65,12 +73,12 @@ def make_graph(
 def stack_graphs(
     graphs: Sequence[SemanticGraph], device: torch.device | str
 ) -> SemanticGraph:
-    """Stack host graphs into one batched SemanticGraph on ``device``."""
+    """Stack graphs into one batched SemanticGraph on ``device``: NumPy
+    fields on the host (one transfer a field), tensor fields on their own
+    device."""
     return SemanticGraph(
         *(
-            torch.from_numpy(
-                np.stack([np.asarray(getattr(g, f)) for g in graphs])
-            ).to(device)
+            torch.stack([torch.as_tensor(getattr(g, f)) for g in graphs]).to(device)
             for f in SemanticGraph._fields
         )
     )

@@ -5,8 +5,9 @@ Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 back, its config dataclasses, map artifacts and map index to the port's,
 carries keyframe clouds, masks and GICP covariances onto a device (padded
 to the DB's frame count), pads a DB's frame axis, and reads the
-reference's on-disk descriptor-DB format (v2), so a map built by
-``sgtd_tpu`` is served by the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
+reference's on-disk descriptor-DB format (v2, through
+``db.database.load_database``), so a map built by ``sgtd_tpu`` is served
+by the port. The reference's uint32 fields (``packed2``, ``bucket_table``)
 cross as their int32 bit patterns.
 """
 
@@ -18,20 +19,10 @@ import numpy as np
 import torch
 
 from sgtd_tpu_torch.config import SGTDConfig
+from sgtd_tpu_torch.db import database
 from sgtd_tpu_torch.db.database import DBBuildReport, DescriptorDB
 from sgtd_tpu_torch.desc.triangles import Descriptors
 from sgtd_tpu_torch.graph.types import SemanticGraph
-
-# The reference's on-disk DB format version (packed2 / (T, 2) bucket table).
-DB_FORMAT_VERSION = 2
-_UINT32_FIELDS = ("packed2", "bucket_table")
-# Fields older writers may omit, with the reference's defaults.
-_FIELD_DEFAULTS = {
-    "bucket_table": np.zeros((0, 2), np.uint32),
-    "cell_remap": np.zeros(0, np.int32),
-    "code_remap": np.zeros(0, np.int32),
-    "table_stride": np.ones(1, np.int32),
-}
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -69,16 +60,12 @@ def descriptors_from_numpy(descs, device) -> Descriptors:
 
 def db_from_numpy(db, device) -> DescriptorDB:
     """A reference DescriptorDB as tensors (uint32 words as int32 bits)."""
-    return _convert(DescriptorDB, db, device)
+    return database.db_from_arrays(db, device)
 
 
 def db_to_numpy(db: DescriptorDB) -> dict:
     """The port's DB as the reference's field arrays (uint32 words restored)."""
-    out = {}
-    for f in DescriptorDB._fields:
-        a = getattr(db, f).cpu().numpy()
-        out[f] = a.view(np.uint32) if f in _UINT32_FIELDS else a
-    return out
+    return database.db_to_arrays(db)
 
 
 def pad_frames(db: DescriptorDB, f_pad: int) -> DescriptorDB:
@@ -124,23 +111,27 @@ def map_clouds_to_device(clouds, masks, covs=None, device="cuda", f_pad: int | N
 
 
 def map_artifacts_from_numpy(art, device):
-    """Reference ``MapArtifacts`` (fields as NumPy arrays) as the port's, on
-    ``device``. Voxel maps do not cross: VGICP is not ported."""
+    """Reference ``MapArtifacts`` (fields as NumPy arrays, its voxel maps
+    a ``GaussianVoxelMap`` of arrays or None) as the port's, on
+    ``device``."""
     from sgtd_tpu_torch.db.artifacts import MapArtifacts
+    from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap
 
     return MapArtifacts(
         clouds=_to_tensor(np.asarray(art.clouds, np.float32), device),
         masks=_to_tensor(np.asarray(art.masks, bool), device),
         covs=_to_tensor(np.asarray(art.covs, np.float32), device),
-        vmaps=None,
+        vmaps=None if art.vmaps is None else _convert(GaussianVoxelMap, art.vmaps, device),
     )
 
 
 def map_artifacts_to_numpy(art) -> dict:
-    """The port's ``MapArtifacts`` as the reference's field arrays."""
+    """The port's ``MapArtifacts`` as the reference's field arrays; ``vmaps``
+    a dict of the voxel maps' fields, or None."""
     return {
         "clouds": art.clouds.cpu().numpy(), "masks": art.masks.cpu().numpy(),
-        "covs": art.covs.cpu().numpy(), "vmaps": None,
+        "covs": art.covs.cpu().numpy(),
+        "vmaps": None if art.vmaps is None else {k: v.cpu().numpy() for k, v in art.vmaps._asdict().items()},
     }
 
 
@@ -169,21 +160,6 @@ def to_numpy(result):
 
 
 def load_database(path: str, device) -> DescriptorDB:
-    """Read a DB written by ``sgtd_tpu.db.database.save_database``."""
-    with np.load(path) as z:
-        version = int(z["format_version"]) if "format_version" in z else 1
-        missing = [
-            k for k in DescriptorDB._fields if k not in z and k not in _FIELD_DEFAULTS
-        ]
-        if version != DB_FORMAT_VERSION or missing:
-            raise ValueError(
-                f"{path}: descriptor-DB file format v{version} "
-                f"(missing fields: {missing or 'none'}) is incompatible with "
-                f"v{DB_FORMAT_VERSION} (packed2/(T,2)-table layout): rebuild the map DB"
-            )
-        return DescriptorDB(
-            *(
-                _to_tensor(z[k] if k in z else _FIELD_DEFAULTS[k], device)
-                for k in DescriptorDB._fields
-            )
-        )
+    """Read a DB written by ``sgtd_tpu.db.database.save_database`` (or the
+    port's)."""
+    return database.load_database(path, device)

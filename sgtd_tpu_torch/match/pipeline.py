@@ -3,8 +3,8 @@
 The reference's ``SearchLoop``: build the query's triangle descriptors,
 vote for candidate keyframes, verify every candidate, and return the
 score-sorted candidate list with rigid transforms (``localize``); then
-GICP-align the query cloud against the top candidates' keyframe clouds
-and pick one (``localize_refined``, the full headline configuration) —
+GICP- or VGICP-align the query cloud against the top candidates' keyframe
+clouds and pick one (``localize_refined``, the full headline configuration) —
 here for a batch of query graphs at once (leading axis B) in place of
 the reference's vmap. ``localize_exact`` is the uncapped fallback for
 queries that ``localize`` flags TRUNC_SCAN.
@@ -33,6 +33,7 @@ from sgtd_tpu_torch.match.search import (
 )
 from sgtd_tpu_torch.match.verify import VerifyResult, verify_candidates
 from sgtd_tpu_torch.refine.gicp import gicp_rerank
+from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, vgicp_rerank
 from sgtd_tpu_torch.utils import disable_tf32
 
 
@@ -195,24 +196,28 @@ def localize_refined(
     map_covs: torch.Tensor | None = None,
     config: SGTDConfig = SGTDConfig(),
     rerank_k: int = 4,
+    map_vmaps: GaussianVoxelMap | None = None,
 ) -> RefinedResult:
-    """Localization with the multi-candidate GICP rerank (the reference's
-    SG-STD-gicp-multi, candidate loop semantic_graph_localization.cpp:651-723).
+    """Localization with the multi-candidate registration rerank (the
+    reference's SG-STD-gicp-multi, candidate loop
+    semantic_graph_localization.cpp:651-723).
 
-    The top ``rerank_k`` candidates of each query align at once and
-    :func:`rerank_pick` chooses among them. graphs: a batch of B query
-    graphs; query_clouds (B, S, 3) / query_masks (B, S); map_clouds
-    (F_pad, P, 3) / map_masks (F_pad, P) / map_covs (F_pad, P, 3, 3) |
-    None: the keyframe clouds indexed by frame id, with one row per row of
-    ``db.frame_poses``.
+    The top ``rerank_k`` candidates of each query align at once, by GICP
+    or (``config.gicp.engine == "vgicp"``) VGICP, and :func:`rerank_pick`
+    chooses among them. graphs: a batch of B query graphs; query_clouds
+    (B, S, 3) / query_masks (B, S); map_clouds (F_pad, P, 3) / map_masks
+    (F_pad, P) / map_covs (F_pad, P, 3, 3) | None: the keyframe clouds
+    indexed by frame id, with one row per row of ``db.frame_poses``.
+    ``map_vmaps``: prebuilt per-keyframe Gaussian voxel maps
+    (``refine.vgicp.build_voxel_maps``, leading F_pad axis); with the VGICP
+    engine the rerank then gathers them and builds none, else it builds
+    the candidates' maps from their clouds and covariances.
     """
     disable_tf32()
-    if config.gicp.engine == "vgicp":
-        raise NotImplementedError(
-            "engine='vgicp' is not ported yet (ROADMAP queue 1 item 6, refine/vgicp.py)"
-        )
     f_pad = db.frame_poses.shape[0]
-    for name, x in (("map_clouds", map_clouds), ("map_masks", map_masks), ("map_covs", map_covs)):
+    maps = (("map_clouds", map_clouds), ("map_masks", map_masks), ("map_covs", map_covs),
+            ("map_vmaps", None if map_vmaps is None else map_vmaps.keys))
+    for name, x in maps:
         if x is not None and x.shape[0] != f_pad:
             raise ValueError(
                 f"{name} has {x.shape[0]} rows; the DB's frame_poses has {f_pad} "
@@ -221,10 +226,15 @@ def localize_refined(
     res = localize(db, graphs, config)
     frames_k = res.frames[:, :rerank_k].long()  # (B, K) score-sorted
     inits = se3.rt_to_mat(res.rot[:, :rerank_k], res.trans[:, :rerank_k])
-    out = gicp_rerank(
-        query_clouds, query_masks, map_clouds[frames_k], map_masks[frames_k], inits,
-        config.gicp, tgt_covs=None if map_covs is None else map_covs[frames_k],
-    )
+    if config.gicp.engine == "vgicp" and map_vmaps is not None:
+        vm_k = GaussianVoxelMap(*(x[frames_k] for x in map_vmaps))
+        out = vgicp_rerank(query_clouds, query_masks, None, None, inits, config.gicp, voxel_maps=vm_k)
+    else:
+        rerank = vgicp_rerank if config.gicp.engine == "vgicp" else gicp_rerank
+        out = rerank(
+            query_clouds, query_masks, map_clouds[frames_k], map_masks[frames_k], inits,
+            config.gicp, tgt_covs=None if map_covs is None else map_covs[frames_k],
+        )
     pick, use, refined_poses = rerank_pick(
         out.fitness_gated, out.inlier_frac, db.frame_poses[frames_k] @ out.transform,
         res.poses[:, :rerank_k], res.found, config.gicp,

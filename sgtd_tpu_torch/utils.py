@@ -2,7 +2,14 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def host_array(x) -> np.ndarray:
+    """A NumPy array of ``x``: a tensor on any device, copied to the host,
+    or anything ``np.asarray`` takes."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def batch_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

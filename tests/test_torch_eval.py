@@ -158,8 +158,10 @@ def test_build_map_artifacts_matches_reference(small_world):
     err = np.abs(art.covs.numpy() - np.asarray(jart.covs)).max(axis=(-2, -1))
     assert (err > 2e-4).mean() <= 1e-3 and err.max() <= 1e-2, np.sort(err.ravel())[-5:]
     assert not art.masks[20:].any() and torch.equal(art.covs[20:], torch.eye(3).expand(f_pad - 20, 512, 3, 3))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        artifacts.build_map_artifacts(m_fn, 2, dataclasses.replace(GCFG, engine="vgicp"), device="cpu")
+    # The VGICP engine's artifacts carry voxel maps too (held to the
+    # reference's in tests/test_torch_vgicp_eval.py).
+    vart = artifacts.build_map_artifacts(m_fn, 2, dataclasses.replace(GCFG, engine="vgicp"), device="cpu")
+    assert vart.vmaps is not None and vart.vmaps.keys.shape == (2, 512)
     assert artifacts.gicp_fingerprint(GCFG) == jax_artifacts.gicp_fingerprint(JGCFG)
     # Across packages in memory.
     crossed = interop.map_artifacts_from_numpy(jax.tree_util.tree_map(np.asarray, jart), "cpu")
@@ -191,13 +193,24 @@ def test_artifacts_files_cross_packages(small_world, tmp_path, writer):
 
 
 def test_artifacts_file_with_voxel_maps_loads_without_them(small_world, tmp_path):
+    """A file without vmap_* fields loads with vmaps None; one with them
+    (the reference's VGICP artifacts) loads with its voxel maps."""
     *_, jart = small_world
-    path = str(tmp_path / "art_vm.npz")
-    np.savez_compressed(path, format_version=np.int32(2), clouds=np.asarray(jart.clouds),
-                        masks=np.asarray(jart.masks), covs=np.asarray(jart.covs),
-                        vmap_keys=np.zeros((jart.clouds.shape[0], 4), np.int32))
+    fields = dict(format_version=np.int32(2), clouds=np.asarray(jart.clouds), masks=np.asarray(jart.masks),
+                  covs=np.asarray(jart.covs))
+    path = str(tmp_path / "art.npz")
+    np.savez_compressed(path, **fields)
     art = artifacts.load_map_artifacts(path, device="cpu")
     assert art.vmaps is None and art.covs.shape == jart.covs.shape
+    f = jart.clouds.shape[0]
+    vm = dict(keys=np.full((f, 4), 2**31 - 1, np.int32), mean=np.zeros((f, 4, 3), np.float32),
+              cov=np.zeros((f, 4, 3, 3), np.float32), n=np.zeros((f, 4), np.float32),
+              resolution=np.ones(f, np.float32))
+    np.savez_compressed(path, **fields, **{f"vmap_{k}": v for k, v in vm.items()})
+    art = artifacts.load_map_artifacts(path, device="cpu")
+    assert art.covs.shape == jart.covs.shape
+    for k, v in vm.items():
+        np.testing.assert_array_equal(getattr(art.vmaps, k).numpy(), v)
 
 
 @pytest.mark.parametrize("case", ["format", "frames", "fingerprint", "validate"])

@@ -174,7 +174,7 @@ def test_map_tensors_must_carry_the_db_frame_count(slice_results, small_config):
     db, _, _ = build_database_calibrated(md, mb.pose, md, cfg.desc, table_slots=TABLE_SLOTS)
     with pytest.raises(ValueError, match="frame_poses"):
         localize_refined(db, qb, clouds[:1], masks[:1], clouds, masks, None, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="frame_poses"):
         localize_refined(
             db, qb, clouds[:1], masks[:1], clouds, masks, None,
             cfg.replace(gicp=config_from_reference(GicpConfig(engine="vgicp"), type(cfg.gicp))),
