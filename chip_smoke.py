@@ -177,12 +177,36 @@ Phases (any failure ends the run with a non-zero exit):
    and, with B5 patched to its plain version, the same pick, refined and
    found with poses within 5e-3 m and 1e-3 rad; the DB through
    ``save_database`` and ``load_database`` with equal fields.
+9. The front end on the card: a ``make_world`` world (seed 2026, 1,920
+   instances) rendered as 64 map and 16 query labeled scans of about
+   120,000 points (``render_labeled_scan``: every visible instance a blob
+   of at least 400 points, class ``min(label, 11) + 7``, instance id 0 as
+   a semantic-only network gives, and a class-10 sidewalk sheet), written
+   as .bin/.label files with KITTI-layout poses; ``python -m
+   sgtd_tpu_torch.cli build-map --dataset raw`` on both directories in
+   processes of their own, side by side (DCVC at ``DcvcConfig()`` widths,
+   ``max_nodes`` 128). Gates: the graphs of map keyframes 0, 21, 42 and
+   63 against the JAX reference's (``tests/data/frontend_reference.json``:
+   labels and masks equal, centres within 1e-4 m, densities within a
+   relative 1e-4); at least 95% of the rendered instances that the routing
+   clusters (at least ``min_seg`` points, inside the range gates) have a
+   node of their label within 0.1 m; the port's ``evaluate`` on the built
+   graphs at SR >= 0.95 with zero TRUNC_SCAN and B1-B3 launched; a
+   ``--local-map-radius 15`` map of the first 16 keyframes (in process)
+   with no fewer nodes than the single scans. Then FEC on B5: one
+   class-filtered cloud of map scan 0, padded to 32,768 points, through
+   ``fec_cluster`` (max_n 16) with B5 and with B5's plain version: equal
+   labels and counts, B5 launched (``fec_launches`` in B5's record), B5's
+   kernel and plain times at this shape beside its bound (B5's record,
+   under ``fec``). Prints build-map scans/s in process (median of 3 passes
+   over the 64 map scans) and DCVC sweeps a scan.
 
 After the last phase one ``torch.profiler`` session counts the device
 activities of one call of B1's wrapper at the bench shape (and of the
 first baseline's): this tree's must be one (with ``--kernels-only``, at
 the end of phase 2). No ``jax`` or ``sgtd_tpu`` module may be loaded, with
-the CLI, ``io``, ``native``, ``refine.vgicp`` and ``eval.oracle`` imported. The
+the CLI, ``io``, ``native``, ``refine.vgicp``, ``eval.oracle`` and the front
+end's modules imported. The
 line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2840,6 +2864,344 @@ def oracle_gate(oracle, pipeline_ok: list) -> None:
         fail(f"hard world: pipeline SR {sum(pipeline_ok) / n} below the oracle's {sum(oracle_ok) / n}")
 
 
+# Phase 9: the front end on the card. Labeled scans of a make_world world
+# (seed FRONT_SEED) at a SemanticKITTI HDL-64 scan's size, as .bin/.label
+# files; build-map on them, the port's localize on the graphs it writes.
+FRONT_SEED, FRONT_MAP, FRONT_QUERIES = 2026, 64, 16
+FRONT_TARGET_PTS, FRONT_GROUND_PTS, FRONT_MIN_BLOB = 120_000, 24_000, 400
+FRONT_VIEW_M, FRONT_LOCAL_RADIUS_M, FRONT_LOCAL_FRAMES = 50.0, 15.0, 16
+# The JAX reference's graphs of these map keyframes (sgtd_tpu.cli's
+# build_graph on the CPU): tests/test_torch_frontend.py's
+# test_reference_frontend_graphs computes them again from sgtd_tpu.
+FRONT_REF_FRAMES = (0, 21, 42, 63)
+FRONT_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "frontend_reference.json")
+# Centres and densities against the reference's: each cluster sums its
+# points in point order on the card as on the CPU, with the same voxels;
+# the tolerance covers one float32 rounding apart in a few sums.
+FRONT_CENTER_TOL_M, FRONT_DENSITY_RTOL = 1e-4, 1e-4
+FEC_POINTS, FEC_MAX_N, FEC_TOL_M, FEC_MIN_SIZE = 32768, 16, 0.5, 50
+
+
+def front_world():
+    from sgtd_tpu_torch.data.synthetic import make_world
+
+    return make_world(np.random.default_rng(FRONT_SEED), num_map_frames=FRONT_MAP, num_queries=FRONT_QUERIES)
+
+
+def render_labeled_scan(world, pose, seed):
+    """A labeled scan as a semantic-only segmentation network labels one
+    (tests/test_cli.py:103-130's renderer at an HDL-64 scan's size): every
+    instance within ``FRONT_VIEW_M`` a Gaussian blob (sigma 0.15 m) of at
+    least ``FRONT_MIN_BLOB`` points, class ``min(label, 11) + 7``, instance
+    id 0; a class-10 sidewalk sheet of ``FRONT_GROUND_PTS`` points; about
+    ``FRONT_TARGET_PTS`` points in all and never above 131,072. Returns
+    (points (N, 3) float32, sem (N,) uint32, inst (N,) uint32, the visible
+    instances' world indices, their point counts)."""
+    rng = np.random.default_rng(seed)
+    Tinv = np.linalg.inv(pose)
+    local = world.instance_xyz @ Tinv[:3, :3].T + Tinv[:3, 3]
+    vis = np.nonzero(np.linalg.norm(local[:, :2], axis=1) < FRONT_VIEW_M)[0]
+    ppi = max(FRONT_MIN_BLOB, (FRONT_TARGET_PTS - FRONT_GROUND_PTS) // max(len(vis), 1))
+    pts = [local[j] + rng.normal(0, 0.15, (ppi, 3)) for j in vis]
+    sem = [np.full(ppi, min(int(world.instance_label[j]), 11) + 7) for j in vis]
+    pts.append(np.column_stack([rng.uniform(-FRONT_VIEW_M, FRONT_VIEW_M, (FRONT_GROUND_PTS, 2)),
+                                rng.normal(0, 0.03, FRONT_GROUND_PTS)]))
+    sem.append(np.full(FRONT_GROUND_PTS, 10))
+    pts = np.concatenate(pts).astype(np.float32)
+    if len(pts) > 131072:
+        fail(f"render_labeled_scan: {len(pts)} points exceed 131,072")
+    return pts, np.concatenate(sem).astype(np.uint32), np.zeros(len(pts), np.uint32), vis, np.full(len(vis), ppi)
+
+
+def write_front_world(root: str, world) -> dict:
+    """The phase-9 world as files under ``root``: map and query .bin/.label
+    scans (``io.readers``) and KITTI-layout pose files. Returns the
+    directories and files by name, and each scan's visible instances."""
+    from sgtd_tpu_torch.io.readers import write_bin, write_label
+
+    out, seen = {}, {}
+    for side, poses, base in (("map", world.map_poses, 0), ("query", world.query_poses, 10_000)):
+        for kind in ("scans", "labels", "graphs"):
+            out[f"{side}_{kind}"] = os.path.join(root, f"{side}_{kind}")
+            os.makedirs(out[f"{side}_{kind}"])
+        for i, pose in enumerate(poses):
+            pts, sem, inst, vis, counts = render_labeled_scan(world, pose, (FRONT_SEED, base + i))
+            write_bin(os.path.join(out[f"{side}_scans"], f"{i:06d}.bin"), pts)
+            write_label(os.path.join(out[f"{side}_labels"], f"{i:06d}.label"), sem, inst)
+            seen[side, i] = (vis, counts)
+        out[f"{side}_poses"] = os.path.join(root, f"{side}_poses.txt")
+        np.savetxt(out[f"{side}_poses"], poses[:, :3, :].reshape(len(poses), 12))
+    out["seen"] = seen
+    return out
+
+
+def front_reference_gate(graph_dir: str, card: str) -> None:
+    """Phase 9, gate 1: the built graphs of ``FRONT_REF_FRAMES`` against the
+    JAX reference's (``FRONT_REF_FILE``): labels and masks equal, centres
+    within ``FRONT_CENTER_TOL_M``, densities within ``FRONT_DENSITY_RTOL``."""
+    from sgtd_tpu_torch.config import SGTDConfig
+    from sgtd_tpu_torch.io.graph_json import read_graph_json
+
+    with open(FRONT_REF_FILE) as f:
+        ref = json.load(f)
+    if ref["frames"] != list(FRONT_REF_FRAMES):
+        fail(f"{FRONT_REF_FILE}: frames {ref['frames']}, not {list(FRONT_REF_FRAMES)}")
+    d_c = d_d = 0.0
+    for i, want in zip(FRONT_REF_FRAMES, ref["graphs"]):
+        g = read_graph_json(os.path.join(graph_dir, f"{i:06d}.json"), SGTDConfig(), "cpu")
+        if g.labels.tolist() != want["labels"] or g.mask.int().tolist() != want["mask"]:
+            fail(f"build-map keyframe {i}: node labels or mask differ from the JAX reference's")
+        m = g.mask.numpy()
+        d_c = max(d_c, float(np.abs(g.centers.numpy()[m] - np.asarray(want["centers"], np.float32)).max()))
+        wd = np.asarray(want["density"], np.float32)
+        d_d = max(d_d, float((np.abs(g.density.numpy()[m] - wd) / np.maximum(np.abs(wd), 1e-6)).max()))
+    if d_c > FRONT_CENTER_TOL_M or d_d > FRONT_DENSITY_RTOL:
+        fail(f"build-map: centres {d_c} m or densities {d_d} (relative) off the JAX reference's")
+    log(f"build-map against the JAX reference (keyframes {list(FRONT_REF_FRAMES)}, "
+        f"{sum(sum(g['mask']) for g in ref['graphs'])} nodes): labels and masks equal, centres within {d_c:.3e} m "
+        f"(gate {FRONT_CENTER_TOL_M}), densities within {d_d:.3e} relative (gate {FRONT_DENSITY_RTOL}) [{card}]")
+
+
+def front_world_gate(world, seen: dict, graphs: dict):
+    """Phase 9, gate 2: the share of rendered instances (of a class the
+    routing clusters, at least its ``min_seg`` points, inside the range
+    gates) that have a node of the right label within 0.1 m, and their
+    count."""
+    from sgtd_tpu_torch.graph.build import MULRAN_ROUTING
+
+    is_inst, min_seg, node_label = MULRAN_ROUTING.tables()
+    hit = total = 0
+    for (side, i), (vis, counts) in seen.items():
+        g = graphs[side][i]
+        m = g.mask.cpu().numpy()
+        lab, cen = g.labels.cpu().numpy()[m], g.centers.cpu().numpy()[m]
+        pose = (world.map_poses if side == "map" else world.query_poses)[i]
+        Tinv = np.linalg.inv(pose)
+        local = world.instance_xyz[vis] @ Tinv[:3, :3].T + Tinv[:3, 3]
+        for c_xyz, j, n in zip(local, vis, counts):
+            cls = min(int(world.instance_label[j]), 11) + 7
+            if not is_inst[cls] or n < min_seg[cls] or not 0.5 < np.linalg.norm(c_xyz) < 120.0:
+                continue
+            total += 1
+            hit += bool(((lab == node_label[cls]) & (np.linalg.norm(cen - c_xyz, axis=1) < 0.1)).any())
+    return hit / max(total, 1), total
+
+
+def fec_on_b5(dev, card: str, scan_file: str, label_file: str):
+    """Phase 9, FEC: one class-filtered cloud of a rendered scan, padded to
+    ``FEC_POINTS``, through ``fec_cluster`` on the card (B5 at P = 1, N =
+    N), against the same call with B5's plain version; then B5's body at
+    this shape. Returns (B5's launches in the FEC call, B5's record at
+    this shape)."""
+    from sgtd_tpu_torch.cluster import fec
+    from sgtd_tpu_torch.io.readers import read_bin, read_label
+    from sgtd_tpu_torch.ops import nn
+
+    pts, (sem, _) = read_bin(scan_file)[:, :3], read_label(label_file)
+    cls = int(np.bincount(sem[sem != 10]).argmax())
+    cloud = pts[sem == cls][:FEC_POINTS]
+    n = len(cloud)
+    points = torch.zeros((FEC_POINTS, 3), dtype=torch.float32, device=dev)
+    points[:n] = torch.from_numpy(cloud).to(dev)
+    mask = torch.zeros(FEC_POINTS, dtype=torch.bool, device=dev)
+    mask[:n] = True
+    args = (points, mask, FEC_TOL_M, FEC_MIN_SIZE, FEC_MAX_N)
+    reset_counts()
+    fec.ITERATIONS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fec.fec_cluster(*args)
+    torch.cuda.synchronize()
+    fec_s, launches, sweeps = time.perf_counter() - t0, read_counts()[4], fec.ITERATIONS
+    if launches < 1:
+        fail(f"FEC: B5 never launched on its path ({launches})")
+    with mock.patch.object(nn, "knn", nn.knn_plain):
+        plain = fec.fec_cluster(*args)
+    if not (torch.equal(got.labels, plain.labels) and torch.equal(got.counts, plain.counts)):
+        fail("FEC: labels or counts with B5 differ from the same call with B5's plain version")
+    eff = torch.where(mask[:, None], points, 1e6)
+    knn_idx, plain_idx = nn.knn(eff, eff, FEC_MAX_N), nn.knn_plain(eff, eff, FEC_MAX_N)
+    n_rows, err = check_nn_rows(f"B5 knn FEC (1, {FEC_POINTS}) self", eff, eff, knn_idx, plain_idx)
+    ms = event_ms(lambda: nn.knn(eff, eff, FEC_MAX_N), 10)
+    plain_ms = event_ms(lambda: nn.knn_plain(eff, eff, FEC_MAX_N), 1, 3, spin=False)
+    rec = kernel_record("knn", "nn.cu", "sgtd_tpu/ops/pallas_nn.py:133", err, ms, plain_ms,
+                        nbytes=4 * FEC_POINTS * (3 + 3 + FEC_MAX_N), flops=8 * FEC_POINTS * FEC_POINTS)
+    queries, warps, blocks = nn.scan_plan(1, FEC_POINTS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"FEC on B5: class {cls}, {n} points padded to {FEC_POINTS}, tolerance {FEC_TOL_M} m, max_n {FEC_MAX_N}: "
+        f"{int((got.counts > 0).sum())} clusters in {sweeps} sweeps, {fec_s:.3f} s; labels and counts equal with "
+        f"B5's plain version; B5 launches {launches}; neighbour rows differing (1-ulp rule) {n_rows} [{card}]")
+    log(f"   B5 knn (1, {FEC_POINTS}) self, k {FEC_MAX_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
+        f"grid {-(-FEC_POINTS // nn.KNN_QUERIES_PER_BLOCK)} blocks on {sms} SMs (nn1's scan_plan at this shape: "
+        f"{blocks} blocks of {warps} warps, {queries} queries a thread) [{card}]")
+    log_bound(rec)
+    return launches, {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")} | {
+        "launches": launches, "shape": [1, FEC_POINTS, FEC_POINTS], "k": FEC_MAX_N}
+
+
+def build_map_split(dev, scans: list, labels: list) -> dict:
+    """build-map's work on each scan stage by stage, synchronized after
+    each (the CLI's steps for ``--dataset raw``): ms medians of reading the
+    files and padding, the transfer, DCVC, the rest of ``build_graph`` and
+    the JSON write."""
+    import tempfile
+
+    from sgtd_tpu_torch.config import DcvcConfig, SGTDConfig
+    from sgtd_tpu_torch.graph import build
+    from sgtd_tpu_torch.io import readers
+    from sgtd_tpu_torch.io.graph_json import write_graph_json
+
+    n_max, caps = DcvcConfig().max_points, SGTDConfig().caps
+    ms = {k: [] for k in ("read_and_pad", "to_device", "dcvc", "rest_of_build_graph", "write_json")}
+    dcvc_ms = []
+
+    def timed_dcvc(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dcvc_cluster(*a, **k)
+        torch.cuda.synchronize()
+        dcvc_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dcvc_cluster = build.dcvc_cluster
+    with tempfile.TemporaryDirectory() as out_dir, mock.patch.object(build, "dcvc_cluster", timed_dcvc):
+        for sp, lp in zip(scans, labels):
+            t = [time.perf_counter()]
+
+            def tick(name):
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                ms[name].append((t[-1] - t[-2]) * 1e3)
+
+            pts = readers.read_bin(sp)[:, :3]
+            sem, inst = readers.read_label(lp)
+            arrays = [np.zeros((n_max, 3), np.float32), np.zeros(n_max, np.int32), np.zeros(n_max, np.int32),
+                      np.zeros(n_max, bool)]
+            for a, v in zip(arrays, (pts, sem, inst, True)):
+                a[: len(pts)] = v
+            tick("read_and_pad")
+            tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+            tick("to_device")
+            g = build.build_graph(*tensors, np.eye(4, dtype=np.float32), caps)
+            tick("rest_of_build_graph")
+            write_graph_json(os.path.join(out_dir, "g.json"), g)
+            tick("write_json")
+            ms["dcvc"].append(dcvc_ms[-1])
+            ms["rest_of_build_graph"][-1] -= dcvc_ms[-1]
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def frontend(dev, card: str):
+    """Phase 9: the front end on the card. Returns (B5's launches on FEC's
+    path, B5's record at FEC's shape)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sgtd_tpu_torch import cli
+    from sgtd_tpu_torch.cluster import dcvc
+    from sgtd_tpu_torch.config import SGTDConfig
+    from sgtd_tpu_torch.eval import runner
+    from sgtd_tpu_torch.graph.types import stack_graphs
+    from sgtd_tpu_torch.io.graph_json import read_graph_dir
+    from sgtd_tpu_torch.match.pipeline import localize
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    world = front_world()
+    with tempfile.TemporaryDirectory(prefix="sgtd_front_") as root:
+        t0 = time.perf_counter()
+        files = write_front_world(root, world)
+        n_pts = [os.path.getsize(os.path.join(files["map_scans"], f)) // 16 for f in os.listdir(files["map_scans"])]
+        log(f"phase 9 world (make_world seed {FRONT_SEED}, {len(world.instance_xyz)} instances): {FRONT_MAP} map and "
+            f"{FRONT_QUERIES} query labeled scans of {min(n_pts)}-{max(n_pts)} points written in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+
+        # build-map in processes of their own, map and queries side by side.
+        t0 = time.perf_counter()
+        procs = {side: subprocess.Popen(
+            [sys.executable, "-m", "sgtd_tpu_torch.cli", "build-map", "--scans", files[f"{side}_scans"],
+             "--labels", files[f"{side}_labels"], "--dataset", "raw", "--poses", files[f"{side}_poses"],
+             "--out", files[f"{side}_graphs"]],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for side in ("map", "query")}
+        for side, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"CLI build-map ({side}): exit {proc.returncode}\n{err[-3000:]}")
+        log(f"CLI build-map, map and queries side by side: {time.perf_counter() - t0:.2f} s of wall time")
+        cfg = SGTDConfig()
+        graphs = {side: read_graph_dir(files[f"{side}_graphs"], cfg, dev) for side in ("map", "query")}
+        if [len(graphs["map"]), len(graphs["query"])] != [FRONT_MAP, FRONT_QUERIES]:
+            fail(f"build-map wrote {len(graphs['map'])} map and {len(graphs['query'])} query graphs")
+
+        front_reference_gate(files["map_graphs"], card)
+        share, total = front_world_gate(world, files["seen"], graphs)
+        if share < 0.95:
+            fail(f"build-map: {share:.4f} of {total} rendered instances have a node within 0.1 m (gate 0.95)")
+        log(f"build-map against the rendered world: {share:.4f} of {total} instances have a node of their label "
+            f"within 0.1 m (gate 0.95)")
+
+        # The port's localize on the graphs the port built.
+        index = runner.build_map_index(graphs["map"], cfg, dev)
+        q = stack_graphs(graphs["query"], dev)
+        trunc = int(((localize(index.db, q, index.config).truncated & TRUNC_SCAN) != 0).sum())
+        reset_counts()
+        out = runner.evaluate(index, graphs["query"], batch_size=FRONT_QUERIES)
+        counts = read_counts()
+        if trunc or out["success_rate"] < SR_GATE or min(counts[:3]) < 1:
+            fail(f"localize on the built graphs: SR {out['success_rate']}, {trunc} TRUNC_SCAN, launches {counts}")
+        log(f"localize on the built graphs: SR {out['success_rate']:.4f} (gate {SR_GATE}), R@1 {out['recall_at_1']}, "
+            f"TRUNC_SCAN 0, {out['db_rows']} DB rows, launches (B1-B8) {counts} [{card}]")
+
+        # A local map of the first keyframes, in process, timed.
+        sub = os.path.join(root, "local")
+        for kind in ("scans", "labels"):
+            os.makedirs(os.path.join(sub, kind))
+            for f in sorted(os.listdir(files[f"map_{kind}"]))[:FRONT_LOCAL_FRAMES]:
+                os.symlink(os.path.join(files[f"map_{kind}"], f), os.path.join(sub, kind, f))
+        np.savetxt(os.path.join(sub, "poses.txt"), world.map_poses[:FRONT_LOCAL_FRAMES, :3, :].reshape(-1, 12))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["build-map", "--scans", os.path.join(sub, "scans"), "--labels", os.path.join(sub, "labels"),
+                      "--dataset", "raw", "--poses", os.path.join(sub, "poses.txt"), "--local-map-radius",
+                      str(FRONT_LOCAL_RADIUS_M), "--out", os.path.join(sub, "graphs"), "--device", str(dev)])
+        local_s = time.perf_counter() - t0
+        local = read_graph_dir(os.path.join(sub, "graphs"), cfg, "cpu")
+        n_local = [int(g.mask.sum()) for g in local]
+        n_single = [int(g.mask.sum()) for g in graphs["map"][:FRONT_LOCAL_FRAMES]]
+        if len(local) != FRONT_LOCAL_FRAMES or any(a < b for a, b in zip(n_local, n_single)):
+            fail(f"local map: nodes {n_local} against single scans {n_single}")
+        log(f"local map (radius {FRONT_LOCAL_RADIUS_M} m) of {FRONT_LOCAL_FRAMES} keyframes: {local_s:.2f} s in "
+            f"process; nodes {sum(n_local)} against {sum(n_single)} single-scan, none fewer [{card}]")
+
+        # build-map in process, three passes over the map scans.
+        times, sweeps = [], []
+        for k in range(3):
+            dcvc.ITERATIONS = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["build-map", "--scans", files["map_scans"], "--labels", files["map_labels"], "--dataset",
+                          "raw", "--poses", files["map_poses"], "--out", os.path.join(root, f"pass{k}"),
+                          "--device", str(dev)])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            sweeps.append(dcvc.ITERATIONS / FRONT_MAP)
+        log(f"build-map in process: {FRONT_MAP / statistics.median(times):.2f} scans/s (median of 3 passes over "
+            f"{FRONT_MAP} scans: {', '.join(f'{t:.3f}' for t in times)} s, file reads and JSON writes included); "
+            f"DCVC sweeps a scan {sweeps[0]:.2f} [{card}]")
+        split = build_map_split(dev, *(sorted(os.path.join(files[f"map_{k}"], f) for f in os.listdir(files[f"map_{k}"]))
+                                       for k in ("scans", "labels")))
+        log("build-map a scan, ms (median over the map scans, synchronized per stage): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f"; total {sum(split.values()):.2f} [{card}]")
+        out = fec_on_b5(dev, card, os.path.join(files["map_scans"], "000000.bin"),
+                        os.path.join(files["map_labels"], "000000.label"))
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def ptxas_usage(text: str) -> list:
     """'entry: Used N registers, ...' for each kernel in nvcc's -Xptxas -v
     output (mangled entry names)."""
@@ -2933,6 +3295,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         pipeline_ok = hard_world(dev, card)
         b5_vgicp_launches = cli_on_files(dev, card)
+        fec_launches, fec_rec = frontend(dev, card)
         oracle_gate(oracle, pipeline_ok)
     # Launches on the path that runs each kernel: B1-B5 the refined main
     # path (phase 4), B6 the large map (phase 5), B7 the fused refined
@@ -2943,11 +3306,14 @@ def main() -> None:
         rec["launches"] = n
     records[4]["map"]["launches"] = map_knn_launches
     records[4]["vgicp_launches"] = b5_vgicp_launches
+    records[4]["fec_launches"] = fec_launches
+    records[4]["fec"] = fec_rec
     # After every timed phase, so that none runs under or after a
     # profiling session.
     log_frame_votes_activities(dev, card, old_probe)
     for name in ("cli", "io.readers", "io.graph_json", "io.config_yaml", "native", "refine.vgicp", "eval.oracle",
-                 "eval.plotting"):
+                 "eval.plotting", "cluster.dcvc", "cluster.fec", "graph.build", "graph.local_map", "refine.ndt",
+                 "match.graph_match", "match.lapjv"):
         importlib.import_module(f"sgtd_tpu_torch.{name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:

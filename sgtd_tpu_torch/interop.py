@@ -3,6 +3,8 @@
 Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 ``np.asarray`` takes) to the port's tensors on an explicit device and
 back, its config dataclasses, map artifacts and map index to the port's,
+the front end's results (clusters, FEC labels, NDT maps) and class
+routings,
 carries keyframe clouds, masks and GICP covariances onto a device (padded
 to the DB's frame count), pads a DB's frame axis, and reads the
 reference's on-disk descriptor-DB format (v2, through
@@ -146,6 +148,36 @@ def map_index_from_reference(index, device):
         build_seconds=index.build_seconds,
         report=DBBuildReport(**dataclasses.asdict(index.report)),
     )
+
+
+def cluster_result_from_numpy(res, device):
+    """A reference ``cluster.dcvc.ClusterResult`` as the port's, on ``device``."""
+    from sgtd_tpu_torch.cluster.dcvc import ClusterResult
+
+    return _convert(ClusterResult, res, device)
+
+
+def fec_result_from_numpy(res, device):
+    """A reference ``cluster.fec.FecResult`` as the port's, on ``device``."""
+    from sgtd_tpu_torch.cluster.fec import FecResult
+
+    return _convert(FecResult, res, device)
+
+
+def ndt_map_from_numpy(ndt, device):
+    """A reference ``refine.ndt.NdtMap`` as the port's, on ``device``, so
+    the port's ``ndt_align`` runs on a map the reference built."""
+    from sgtd_tpu_torch.refine.ndt import NdtMap
+
+    return _convert(NdtMap, ndt, device)
+
+
+def routing_from_reference(routing):
+    """A reference ``graph.build.ClassRouting`` as the port's: its fields
+    are plain tuples and ints, carried over unchanged."""
+    from sgtd_tpu_torch.graph.build import ClassRouting
+
+    return ClassRouting(**{f.name: getattr(routing, f.name) for f in dataclasses.fields(ClassRouting)})
 
 
 def to_numpy(result):

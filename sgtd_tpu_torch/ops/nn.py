@@ -19,6 +19,8 @@ from typing import Iterator, Tuple
 import torch
 
 from sgtd_tpu_torch.ops import _build
+from sgtd_tpu_torch.utils import fma_f32 as _fma
+from sgtd_tpu_torch.utils import sq_norm_fma as _sq_norm
 
 # Kernel launches since the last reset (the main-path check reads them).
 NN1_LAUNCHES = 0
@@ -35,18 +37,6 @@ MAX_SCAN_BLOCKS = (1 << 31) - 1  # grid.x of the scan, problems x query tiles
 # Distances per block of the plain versions: a few float64 (rows, T)
 # temporaries of 2^24 entries (128 MB each) bound their memory.
 _PLAIN_BLOCK = 1 << 24
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 fused multiply-add, emulated in float64: the product is exact
-    there, and the sum rounds to float64 and then float32, which differs
-    from one true rounding only in rare halfway cases."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _sq_norm(p: torch.Tensor) -> torch.Tensor:
-    x, y, z = p.unbind(-1)
-    return _fma(z, z, _fma(y, y, x * x))
 
 
 def sq_dists_plain(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

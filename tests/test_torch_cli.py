@@ -1,9 +1,9 @@
 """The port's CLI (``python -m sgtd_tpu_torch.cli``) against sgtd_tpu.cli on
 the same files, which the tests write themselves: ``localize``
-descriptor-only, ``eval-synth`` with its plot and candidate PNGs,
-``build-map`` (not ported: it raises), and a run in a process of its own
-that loads no JAX and no sgtd_tpu module. The refined runs are in
-tests/test_torch_cli_refined.py.
+descriptor-only, ``eval-synth`` with its plot and candidate PNGs, and a
+run in a process of its own that loads no JAX and no sgtd_tpu module. The
+refined runs are in tests/test_torch_cli_refined.py, ``build-map`` in
+tests/test_torch_frontend.py.
 
 The summaries carry the reference's keys in its order. Counts, rates and
 recalls are equal; pose errors agree within 1e-3 m / 1e-2 deg (the
@@ -109,11 +109,6 @@ def test_eval_synth_matches_reference(tmp_path):
     _assert_close({k: v for k, v in got.items() if k not in ("plot", "viz")}, want, 1e-3, 1e-2)
 
 
-def test_build_map_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="front end"):
-        cli.main(["build-map", "--scans", str(tmp_path), "--labels", str(tmp_path), "--out", str(tmp_path)])
-
-
 def test_cli_process_imports_no_jax(files):
     """``python -m sgtd_tpu_torch.cli`` in a process of its own, and every
     module this slice added, load no jax and no sgtd_tpu module."""
@@ -124,6 +119,9 @@ from sgtd_tpu_torch import cli
 import sgtd_tpu_torch.db.database, sgtd_tpu_torch.eval.oracle, sgtd_tpu_torch.eval.plotting
 import sgtd_tpu_torch.io.config_yaml, sgtd_tpu_torch.io.graph_json, sgtd_tpu_torch.io.readers
 import sgtd_tpu_torch.native, sgtd_tpu_torch.refine.vgicp
+import sgtd_tpu_torch.cluster.dcvc, sgtd_tpu_torch.cluster.fec, sgtd_tpu_torch.graph.build
+import sgtd_tpu_torch.graph.local_map, sgtd_tpu_torch.match.graph_match, sgtd_tpu_torch.match.lapjv
+import sgtd_tpu_torch.refine.ndt
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     cli.main({_localize_args(dirs) + ["--device", "cpu"]!r})

@@ -111,8 +111,9 @@ def test_localize_scores_and_poses_match_reference(results):
 
 
 def test_port_imports_no_jax():
-    """The port runs where JAX is absent: importing it and localizing must
-    load no jax module and no sgtd_tpu module at all."""
+    """The port runs where JAX is absent: importing it, building a graph
+    from a labeled cloud and localizing must load no jax module and no
+    sgtd_tpu module at all."""
     code = """
 import sys
 import torch
@@ -132,6 +133,18 @@ md, qd = build_descriptors(mb, cfg.desc, cfg.caps), build_descriptors(qb, cfg.de
 db, rep, tot = build_database_calibrated(md, mb.pose, qd, cfg.desc, table_slots=1 << 20)
 res = localize(db, qb, fit_scan_slots(int(tot.max()), tuned_config(cfg, rep)))
 assert res.frames.shape == (2, 8)
+import numpy as np
+from sgtd_tpu_torch.config import DcvcConfig
+from sgtd_tpu_torch.graph.build import build_graph
+from sgtd_tpu_torch.graph.local_map import merge_scans
+from sgtd_tpu_torch.match.graph_match import graph_match
+from sgtd_tpu_torch.match.lapjv import lapjv
+pts = torch.from_numpy(np.random.default_rng(0).normal(5.0, 0.2, (256, 3)).astype(np.float32))
+g = build_graph(pts, torch.full((256,), 17, dtype=torch.int32), torch.zeros(256, dtype=torch.int32),
+                torch.ones(256, dtype=torch.bool), np.eye(4), cfg.caps,
+                DcvcConfig(max_points=256, max_voxels=256, max_clusters=8))
+assert int(g.mask.sum()) == 1
+assert graph_match(*(x[0] for x in mb[:4]), *(x[0] for x in mb[:4])).matches.shape == (32,) and lapjv(np.eye(3))[2] == 0.0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
 print("BAD", bad)
 """

@@ -203,8 +203,8 @@ def test_map_clouds_pad_to_the_db_frame_count():
 
 
 def test_refined_port_imports_no_jax():
-    """Driving localize_refined (covariances, rerank) loads no jax module
-    and no sgtd_tpu module at all."""
+    """Driving localize_refined (covariances, rerank), FEC and NDT loads no
+    jax module and no sgtd_tpu module at all."""
     code = """
 import sys
 import numpy as np
@@ -236,6 +236,12 @@ clouds, masks, _ = map_clouds_to_device(mc, mm, None, "cpu", f_pad=db.frame_pose
 res = localize_refined(db, qb, torch.from_numpy(np.stack(qc)), torch.from_numpy(np.stack(qm)),
                        clouds, masks, point_covariances(clouds, masks, cfg.gicp), cfg, rerank_k=2)
 assert res.pose.shape == (2, 4, 4) and bool(torch.isfinite(res.pose).all())
+from sgtd_tpu_torch.cluster.fec import fec_cluster
+from sgtd_tpu_torch.refine import build_ndt_map, ndt_align
+fr = fec_cluster(clouds[0], masks[0], 2.0, 3)
+assert fr.labels.shape == masks[0].shape
+ndt = build_ndt_map(clouds[0], masks[0], voxel_size=2.0, max_voxels=64)
+assert torch.isfinite(ndt_align(clouds[0], masks[0], ndt, torch.eye(4), max_iterations=2).transform).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
 print("BAD", bad)
 """
