@@ -200,13 +200,34 @@ Phases (any failure ends the run with a non-zero exit):
    kernel and plain times at this shape beside its bound (B5's record,
    under ``fec``). Prints build-map scans/s in process (median of 3 passes
    over the 64 map scans) and DCVC sweeps a scan.
+10. The back end and multi-session SLAM, at the reference tests' own
+   sizes: PGO-CG on tests/test_pgo.py's 4,096-node graph (a 300 m circle,
+   odometry drifting by PGO_DRIFT a step, 31 loops to node 0; 6 GN steps
+   of 300 CG iterations), twice; BA-CG on tests/test_ba.py's problem at
+   5,000 keyframes, 20,000 landmarks and 4 observations each (4 GN steps
+   of 150), twice; dense PGO on the same construction at 1,024 nodes, the
+   largest the session sends to the dense solver, beside the same
+   function on float64 tensors and PCG; dense BA on a 6-keyframe problem
+   beside BA-CG. Gates: each CG run's second bits equal to its first; the
+   PGO end errors below 0.2 of the drift's; BA's cost below 1e-2 of its
+   first and median translation error below 0.05 m; dense PGO within
+   ``DENSE_F64_TOL`` of float64; dense BA within 2e-3 of BA-CG. Then
+   ``localize_and_optimize_session`` on a drifting session
+   (``session_inputs``) of 32 scans of phase 3's bench world (dense,
+   B1-B3 launched, loops equal to the JAX reference's,
+   ``REFERENCE_SESSION``) and of 16 scans of phase 5's map (5,016 nodes:
+   PCG; B6 launched and B1 not), each with tests/test_multisession.py's
+   gates: at least half the scans loop, every corrected pose within 1.0
+   m. Prints each one's seconds.
 
 After the last phase one ``torch.profiler`` session counts the device
 activities of one call of B1's wrapper at the bench shape (and of the
 first baseline's): this tree's must be one (with ``--kernels-only``, at
-the end of phase 2). No ``jax`` or ``sgtd_tpu`` module may be loaded, with
-the CLI, ``io``, ``native``, ``refine.vgicp``, ``eval.oracle`` and the front
-end's modules imported. The
+the end of phase 2); in the same session, those of one GN step of PGO-CG
+and BA-CG with one and with two CG iterations (their difference: a CG
+iteration's). No ``jax`` or ``sgtd_tpu`` module may be loaded, with
+the CLI, ``io``, ``native``, ``refine.vgicp``, ``eval.oracle``, the front
+end's and the back end's modules imported. The
 line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -275,6 +296,31 @@ REFERENCE_HARD = {
     "success_rate": 0.890625,
     "sha256": "fe3e0e71b649986ed91678972fdf5abf5dae47c8943f4be2221feb7dd163e5b8",
 }
+# Phase 10 (the back end). The problems of tests/test_pgo.py and
+# tests/test_ba.py at their own sizes, and a drifting session of the bench
+# world (and of the 5,000-keyframe map) corrected against its map: scans
+# at map keyframes 0..n-1, observed from SESSION_SEED with SESSION_OBS,
+# odometry drifting by tests/test_multisession.py's step.
+PGO_NODES, PGO_DENSE_NODES, PGO_GN, PGO_CG = 4096, 1024, 6, 300
+PGO_DRIFT = (2e-4, 1e-4, 0.0, 0.0, 0.0, 5e-5)
+BA_LARGE, BA_GN, BA_CG = (5000, 20000, 4), 4, 150
+SESSION_SEED, SESSION_SCANS, SESSION_SCANS_5K = 2028, 32, 16
+SESSION_DRIFT = (0.25, 0.1, 0.0, 0.0, 0.0, 0.01)
+SESSION_OBS = dict(center_noise_m=0.05, dropout=0.1)
+# Dense PGO at 1,024 nodes against the same function in float64 (m,
+# rotation entry): the float32 solve's own error there, a 6,144-wide LU
+# with a 1e8 anchor weight, is 1.5e-2 m for the JAX reference and 2.15e-2 m
+# for the port on the CPU (1.2e-4 and 1.4e-4 in the rotation entries;
+# tests/test_torch_pgo.py's slow test_dense_float32_error_at_1024_nodes).
+DENSE_F64_TOL = (5e-2, 1e-3)
+# The JAX reference's correction of the bench-world session (sgtd_tpu on
+# the CPU, phase 3's DB and config): tests/test_torch_multisession.py's
+# slow test_reference_session computes it again from sgtd_tpu.
+REFERENCE_SESSION = {
+    "num_loops": 29,
+    "loop_frames": (-1, -1, -1, 2, 12, 6, 6, 4, 8, 4, 11, 10, 17, 10, 13, 15, 15, 22, 18, 18, 20, 21, 18, 22, 23,
+                    20, 22, 27, 27, 27, 32, 31),
+}
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
@@ -295,12 +341,17 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def timed_ms(fn) -> float:
+def synced_s(fn):
+    """(fn(), seconds), synchronized before and after."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, time.perf_counter() - t0
+
+
+def timed_ms(fn) -> float:
+    return synced_s(fn)[1] * 1e3
 
 
 def median_times(kernel_fn, plain_fn, runs: int = 20):
@@ -782,20 +833,29 @@ def device_activities(calls: dict):
     return {name: len(run) for name, run in zip(calls, runs)}
 
 
-def log_frame_votes_activities(dev, card: str, old_probe=None) -> None:
+def log_frame_votes_activities(dev, card: str, old_probe=None, cg_calls=None) -> None:
     """The device activities of one call of B1's wrapper at the bench shape
     (``device_activities``), and of ``old_probe``'s where a baseline tree
-    gave one; fails where this tree's call runs more than its one kernel."""
+    gave one; fails where this tree's call runs more than its one kernel.
+    In the same session, those of phase 10's ``cg_calls`` (one GN step with
+    one and with two CG iterations), whose difference is a CG iteration's."""
     from sgtd_tpu_torch.ops import probe
 
     hit, frame = votes_inputs(np.random.default_rng(SEED + 8), CHUNK, 98304, 200, "mixed", dev)
     calls = {"this tree": lambda: probe.frame_votes(hit, frame, 200)}
     if old_probe is not None:
         calls["baseline"] = lambda: old_probe.frame_votes(hit, frame, 200)
+    calls.update(cg_calls or {})
     seen = device_activities(calls)
-    log(f"   device activities of one frame_votes call at ({CHUNK}, 98304) f_pad 200 (torch.profiler): {seen} [{card}]")
+    b1 = {k: v for k, v in seen.items() if k in ("this tree", "baseline")}
+    log(f"   device activities of one frame_votes call at ({CHUNK}, 98304) f_pad 200 (torch.profiler): {b1} [{card}]")
     if seen["this tree"] != 1:
         fail(f"B1 frame_votes: one call ran {seen['this tree']} device activities, not 1")
+    for solver in ("PGO-CG", "BA-CG"):
+        if f"{solver}, 1 iteration" in seen:
+            one, two = seen[f"{solver}, 1 iteration"], seen[f"{solver}, 2 iterations"]
+            log(f"   device activities of {solver}, one GN step: {one} with 1 CG iteration, {two} with 2: "
+                f"{two - one} a CG iteration (torch.profiler) [{card}]")
 
 
 def check_frame_votes_edges(dev, card: str) -> dict:
@@ -2189,7 +2249,7 @@ def scale_world(num_map: int):
     world = make_world(rng, extent_m=extent, num_map_frames=num_map, num_queries=SCALE_QUERIES)
     maps = [observe(world, p, cfg, rng) for p in world.map_poses]
     queries = [observe(world, p, cfg, rng, center_noise_m=0.05, dropout=0.1) for p in world.query_poses]
-    return cfg, extent, maps, queries
+    return cfg, extent, maps, queries, world
 
 
 def host_candidates(results):
@@ -2232,9 +2292,10 @@ def scale_stages(db, graphs, cfg):
     return ms
 
 
-def large_map(dev, card: str, num_map: int) -> int:
+def large_map(dev, card: str, num_map: int):
     """Phase 5: the large map through the port's public entry points.
-    Returns B6's launches in gate (1)'s run."""
+    Returns B6's launches in gate (1)'s run, and the tuned config, DB and
+    world for phase 10."""
     from sgtd_tpu_torch.db.database import tuned_config
     from sgtd_tpu_torch.db.device_build import build_database_calibrated
     from sgtd_tpu_torch.desc.triangles import build_descriptors
@@ -2247,7 +2308,7 @@ def large_map(dev, card: str, num_map: int) -> int:
     from sgtd_tpu_torch.ops import probe
 
     t0 = time.perf_counter()
-    cfg, extent, maps, queries = scale_world(num_map)
+    cfg, extent, maps, queries, world = scale_world(num_map)
     log(f"large map: {num_map} keyframes, extent {extent:.0f} m, {SCALE_QUERIES} queries; "
         f"world and graphs {time.perf_counter() - t0:.2f} s (host)")
     cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, max_scan_slots=SCALE_SLOT_CEILING))
@@ -2378,7 +2439,7 @@ def large_map(dev, card: str, num_map: int) -> int:
         f"chunk {SCALE_CHUNK}, synchronized per chunk; {num_map} keyframes, {report.num_rows} rows, "
         f"{cfg.caps.max_scan_slots} slots) [{card}]")
     log(f"large map peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts[5]
+    return counts[5], (cfg, db, world)
 
 
 def hard_world_inputs():
@@ -3202,6 +3263,224 @@ def frontend(dev, card: str):
     return out
 
 
+# Phase 10: the back end and multi-session SLAM on the card.
+
+
+def circle_poses(n: int, radius: float) -> np.ndarray:
+    """tests/test_pgo.py's ``_circle_poses``: n poses on a circle, each
+    heading along it."""
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    c, s = np.cos(th + np.pi / 2), np.sin(th + np.pi / 2)
+    T = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    T[:, 0, 0], T[:, 0, 1], T[:, 1, 0], T[:, 1, 1] = c, -s, s, c
+    T[:, 0, 3], T[:, 1, 3] = radius * np.cos(th), radius * np.sin(th)
+    return T
+
+
+def se3_exp_np(xi) -> np.ndarray:
+    """The port's float32 se(3) exp of (..., 6) on the host."""
+    from sgtd_tpu_torch.geom import se3
+
+    return se3.se3_exp(torch.tensor(np.asarray(xi, np.float32))).numpy()
+
+
+def to_dev(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+
+def pgo_problem(n: int, dev):
+    """tests/test_pgo.py::test_pgo_cg_large_graph's graph at n nodes: a
+    300 m circle, odometry drifting by PGO_DRIFT a step, a loop of weight
+    10 to node 0 every n / 32 nodes. (PoseGraph on ``dev``, truth, odometry)."""
+    from sgtd_tpu_torch.backend.pgo import chain_with_loops
+
+    gt = circle_poses(n, 300.0)
+    rels = np.linalg.inv(gt[:-1]) @ gt[1:]
+    drift = se3_exp_np(PGO_DRIFT)
+    odom = np.empty_like(gt)
+    odom[0] = gt[0]
+    for i in range(n - 1):
+        odom[i + 1] = odom[i] @ rels[i] @ drift
+    li = np.arange(n // 32, n, n // 32)
+    lt = (np.linalg.inv(gt[li]) @ gt[0]).astype(np.float32)
+    pg = chain_with_loops(*to_dev(dev, odom, li, np.zeros_like(li), lt, np.full(len(li), 10.0, np.float32)))
+    return pg, gt, odom
+
+
+def ba_problem(rng, f_n: int, l_n: int, o_n: int, dev, yaw_step: float, pose_noise: float, lm_noise: float):
+    """tests/test_ba.py's problems (its vectorized generator,
+    ``_make_problem_vec``): keyframes 5 m apart on a line, yawing by
+    ``yaw_step`` each, landmarks scattered around them, each seen
+    noise-free by its ``o_n`` nearest keyframes; every pose but the anchored
+    first perturbed by exp(N(0, pose_noise)), every landmark by N(0,
+    lm_noise). (BAProblem on ``dev``, true poses)."""
+    from sgtd_tpu_torch.backend.ba import BAProblem
+
+    gt = np.tile(np.eye(4, dtype=np.float32), (f_n, 1, 1))
+    th = yaw_step * np.arange(f_n, dtype=np.float32)
+    gt[:, 0, 3] = np.arange(f_n, dtype=np.float32) * 5.0
+    gt[:, 0, 0], gt[:, 0, 1], gt[:, 1, 0], gt[:, 1, 1] = np.cos(th), -np.sin(th), np.sin(th), np.cos(th)
+    lms = np.column_stack([rng.uniform(-5, f_n * 5 + 5, l_n), rng.uniform(-15, 15, l_n),
+                           rng.uniform(0, 5, l_n)]).astype(np.float32)
+    d = np.linalg.norm(gt[None, :, :3, 3] - lms[:, None], axis=-1)  # (L, F)
+    near = np.argpartition(d, o_n - 1, axis=1)[:, :o_n]
+    obs_frame = np.take_along_axis(near, np.argsort(np.take_along_axis(d, near, 1), axis=1), 1).astype(np.int32)
+    P = gt[obs_frame]
+    obs_local = np.einsum("loji,loj->loi", P[..., :3, :3], lms[:, None, :] - P[..., :3, 3]).astype(np.float32)
+    xi = rng.normal(0, pose_noise, (f_n, 6)).astype(np.float32)
+    xi[0] = 0.0
+    init = gt @ se3_exp_np(xi)
+    init_lms = lms + rng.normal(0, lm_noise, (l_n, 3)).astype(np.float32)
+    anchor = np.zeros(f_n, bool)
+    anchor[0] = True
+    return BAProblem(*to_dev(dev, init, init_lms, obs_frame, obs_local, np.ones((l_n, o_n), bool), anchor)), gt
+
+
+def session_inputs(world, observe, cfg, n: int):
+    """A drifting session of ``n`` scans at map keyframes 0..n-1 of
+    ``world``: the scans' graphs (``observe``, from SESSION_SEED, with
+    SESSION_OBS), their true poses (float64) and the odometry, each relative
+    motion followed by exp(SESSION_DRIFT) (tests/test_multisession.py's
+    construction). ``observe`` is the port's or, for the reference's run,
+    sgtd_tpu's (the generators are bit-identical)."""
+    rng = np.random.default_rng(SESSION_SEED)
+    gt = np.asarray(world.map_poses[:n], np.float64)
+    drift = se3_exp_np(SESSION_DRIFT).astype(np.float64)
+    odom = [gt[0]]
+    for i in range(1, n):
+        odom.append(odom[-1] @ (np.linalg.inv(gt[i - 1]) @ gt[i]) @ drift)
+    graphs = [observe(world, p, cfg, rng, **SESSION_OBS) for p in gt]
+    return graphs, gt, np.stack(odom)
+
+
+def pose_gaps(a: torch.Tensor, b: torch.Tensor):
+    """Largest translation (m) and rotation-entry gaps between (N, 4, 4) poses."""
+    d = (a.double() - b.double()).abs()
+    return float(d[:, :3, 3].max()), float(d[:, :3, :3].max())
+
+
+def check_session(name: str, res, gt, odom, reference=None) -> None:
+    """tests/test_multisession.py's gates on a corrected session, and
+    ``reference``'s loop decisions where one is given."""
+    s_n = len(gt)
+    before = float(np.linalg.norm(odom[-1, :3, 3] - gt[-1, :3, 3]))
+    errs = np.linalg.norm(res.poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+    got = {"num_loops": res.num_loops, "loop_frames": tuple(int(f) for f in res.loop_frames)}
+    log(f"   {name}: {res.num_loops}/{s_n} loops, loop frames {list(got['loop_frames'])}; odometry end error "
+        f"{before:.4f} m -> corrected max error {errs.max():.4f} m (mean {errs.mean():.4f})")
+    if not before > 1.0:
+        fail(f"{name}: the odometry's end error {before:.4f} m is no drift")
+    if res.num_loops < s_n // 2 or errs.max() >= 1.0 or not np.isfinite(res.poses).all():
+        fail(f"{name}: {res.num_loops} loops (at least {s_n // 2}) or a pose 1.0 m or more off ({errs.max():.4f})")
+    if reference is not None and got != reference:
+        fail(f"{name}: loops {got} differ from the JAX reference's {reference}")
+
+
+def backend_path(dev, card: str, bench, large) -> dict:
+    """Phase 10: PGO and BA at the reference tests' sizes and the session
+    correction on phases 3 and 5's maps (``bench``, ``large``: tuned
+    config, DB, world). Returns the calls whose device activities the
+    final profiling session counts: one GN step of PGO-CG and of BA-CG with
+    one and with two CG iterations."""
+    from sgtd_tpu_torch.backend import ba, pgo
+    from sgtd_tpu_torch.data.synthetic import observe
+    from sgtd_tpu_torch.slam import localize_and_optimize_session, multisession
+
+    t_phase = time.perf_counter()
+    end_err = lambda poses, gt: float(np.linalg.norm(np.asarray(poses)[-1, :3, 3] - gt[-1, :3, 3]))
+
+    # PGO-CG at 4,096 nodes, twice: the same bits.
+    pg, gt, odom = pgo_problem(PGO_NODES, dev)
+    run = lambda: pgo.optimize_pose_graph_cg(pg, iterations=PGO_GN, cg_iterations=PGO_CG)
+    (a, s_a), (b, s_b) = synced_s(run), synced_s(run)
+    before, after = end_err(odom, gt), end_err(a.cpu(), gt)
+    log(f"PGO-CG {PGO_NODES} nodes, {PGO_GN} GN steps x {PGO_CG} CG iterations: {s_a:.3f} s, again {s_b:.3f} s; "
+        f"end error {before:.4f} -> {after:.4f} m [{card}]")
+    if not torch.equal(a, b):
+        fail("PGO-CG: two runs on the same graph gave different bits")
+    if not (bool(torch.isfinite(a).all()) and after < 0.2 * before):
+        fail(f"PGO-CG: end error {after:.4f} m not below 0.2 of the drift's {before:.4f} m")
+
+    # Dense PGO at 1,024 nodes, the largest the session sends to it, held
+    # to the same function on float64 tensors: at this size the float32
+    # LU solve with its 1e8 anchor weight is itself off by ~2 cm (the JAX
+    # reference's by 1.5e-2 m, the port's by 2.15e-2 m on the CPU), and 300
+    # CG iterations stop metres short of convergence (printed).
+    pg1, gt1, odom1 = pgo_problem(PGO_DENSE_NODES, dev)
+    dense, s_dense = synced_s(lambda: pgo.optimize_pose_graph(pg1, iterations=PGO_GN))
+    pg64 = pg1._replace(poses=pg1.poses.double(), t_meas=pg1.t_meas.double(), weight=pg1.weight.double())
+    d64, s_64 = synced_s(lambda: pgo.optimize_pose_graph(pg64, iterations=PGO_GN))
+    cg1, s_cg1 = synced_s(lambda: pgo.optimize_pose_graph_cg(pg1, iterations=PGO_GN, cg_iterations=PGO_CG))
+    g64, gcg = pose_gaps(dense, d64), pose_gaps(dense, cg1)
+    before1, after1 = end_err(odom1, gt1), end_err(dense.cpu(), gt1)
+    log(f"dense PGO {PGO_DENSE_NODES} nodes, {PGO_GN} GN steps: {s_dense:.3f} s (float64 {s_64:.3f} s, PCG at "
+        f"{PGO_CG} iterations {s_cg1:.3f} s); end error {before1:.4f} -> {after1:.4f} m; from float64 "
+        f"{g64[0]:.3e} m / {g64[1]:.3e}, from PCG {gcg[0]:.3e} m / {gcg[1]:.3e} [{card}]")
+    if not (bool(torch.isfinite(dense).all()) and after1 < 0.2 * before1):
+        fail(f"dense PGO: end error {after1:.4f} m not below 0.2 of the drift's {before1:.4f} m")
+    if g64[0] >= DENSE_F64_TOL[0] or g64[1] >= DENSE_F64_TOL[1]:
+        fail(f"dense PGO: {g64} from the float64 solve, beyond {DENSE_F64_TOL}")
+
+    # BA-CG at 5,000 keyframes, twice: the same bits.
+    prob, gt_ba = ba_problem(np.random.default_rng(SEED + 10), *BA_LARGE, dev, 0.02, 0.05, 0.2)
+    run = lambda: ba.optimize_ba_cg(prob, iterations=BA_GN, cg_iterations=BA_CG)
+    (r1, s1), (r2, s2) = synced_s(run), synced_s(run)
+    costs = r1.costs.cpu().numpy()
+    t_err = np.linalg.norm(r1.poses.cpu().numpy()[:, :3, 3] - gt_ba[:, :3, 3], axis=1)
+    log(f"BA-CG {BA_LARGE[0]} keyframes x {BA_LARGE[1]} landmarks x {BA_LARGE[2]} observations, {BA_GN} GN steps x "
+        f"{BA_CG} CG iterations: {s1:.3f} s, again {s2:.3f} s; cost {costs[0]:.4e} -> {costs[-1]:.4e}, median "
+        f"translation error {np.median(t_err):.4f} m [{card}]")
+    if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
+        fail("BA-CG: two runs on the same problem gave different bits")
+    if not (costs[-1] < 1e-2 * costs[0] and np.median(t_err) < 0.05):
+        fail(f"BA-CG: cost {costs[0]:.4e} -> {costs[-1]:.4e} or median error {np.median(t_err):.4f} m")
+
+    # Dense BA on test_ba.py's 6-keyframe problem, against BA-CG.
+    small, _ = ba_problem(np.random.default_rng(SEED + 11), 6, 40, 6, dev, 0.1, 0.1, 0.3)
+    dba, s_dba = synced_s(lambda: ba.optimize_ba(small, iterations=6))
+    cba = ba.optimize_ba_cg(small, iterations=6, cg_iterations=200)
+    gap = max(float((x - y).abs().max()) for x, y in ((dba.poses, cba.poses), (dba.landmarks, cba.landmarks)))
+    log(f"dense BA 6 keyframes x 40 landmarks x 6, 6 GN steps: {s_dba:.3f} s; {gap:.3e} from BA-CG (gate 2e-3)")
+    if not gap < 2e-3:
+        fail(f"dense BA: {gap:.3e} from BA-CG")
+
+    # The session correction on the bench world: B1-B3 on the path.
+    cfg, db, world = bench
+    graphs, gt_s, odom_s = session_inputs(world, observe, cfg, SESSION_SCANS)
+    reset_counts()
+    res, s_sess = synced_s(lambda: localize_and_optimize_session(db, graphs, odom_s, cfg))
+    counts = read_counts()
+    nodes = db.frame_poses.shape[0] + SESSION_SCANS
+    log(f"session correction on the bench world ({SESSION_SCANS} scans, {nodes} nodes, dense): {s_sess:.3f} s; "
+        f"kernel launches (B1-B8) {counts} [{card}]")
+    check_session("bench world session", res, gt_s, odom_s, REFERENCE_SESSION)
+    if min(counts[:3]) <= 0:
+        fail(f"bench world session: B1-B3 must launch: {counts}")
+
+    # The session correction on the 5,000-keyframe map: PCG, B6 in B1's place.
+    cfg5, db5, world5 = large
+    graphs5, gt5, odom5 = session_inputs(world5, observe, cfg5, SESSION_SCANS_5K)
+    nodes5 = db5.frame_poses.shape[0] + SESSION_SCANS_5K
+    if nodes5 <= multisession.DENSE_MAX_NODES:
+        fail(f"large-map session: {nodes5} nodes do not take the PCG solver")
+    reset_counts()
+    res5, s5 = synced_s(lambda: localize_and_optimize_session(db5, graphs5, odom5, cfg5))
+    counts5 = read_counts()
+    log(f"session correction on the {db5.frame_poses.shape[0]}-keyframe map ({SESSION_SCANS_5K} scans, {nodes5} "
+        f"nodes, PCG): {s5:.3f} s; kernel launches (B1-B8) {counts5} [{card}]")
+    check_session("large-map session", res5, gt5, odom5)
+    if counts5[0] != 0 or counts5[5] <= 0 or min(counts5[1:3]) <= 0:
+        fail(f"large-map session: B2, B3 and B6 must launch and B1 must not: {counts5}")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+    return {
+        "PGO-CG, 1 iteration": lambda: pgo.optimize_pose_graph_cg(pg, iterations=1, cg_iterations=1),
+        "PGO-CG, 2 iterations": lambda: pgo.optimize_pose_graph_cg(pg, iterations=1, cg_iterations=2),
+        "BA-CG, 1 iteration": lambda: ba.optimize_ba_cg(prob, iterations=1, cg_iterations=1),
+        "BA-CG, 2 iterations": lambda: ba.optimize_ba_cg(prob, iterations=1, cg_iterations=2),
+    }
+
+
 def ptxas_usage(text: str) -> list:
     """'entry: Used N registers, ...' for each kernel in nvcc's -Xptxas -v
     output (mangled entry names)."""
@@ -3282,6 +3561,7 @@ def main() -> None:
         log(f"--kernels-only: stopping after phase 2 ({time.perf_counter() - T_START:.1f} s)")
         return
     b8_launches, ctx = main_path(dev, card)
+    bench = ctx[:3]
     launches, map_knn_launches, *refined = refined_path(dev, card, *ctx, votes_libs=votes_libs)
     del ctx
     # Phase 7's oracle (plain Python on the host, about a minute on one of
@@ -3289,7 +3569,7 @@ def main() -> None:
     # 5-8 and is read after phase 8.
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         oracle = pool.submit(oracle_subsample, ORACLE_QUERIES)
-        b6_launches = large_map(dev, card, args.scale_frames)
+        b6_launches, large = large_map(dev, card, args.scale_frames)
         b7_launches = fused_path(dev, card, *refined)
         del refined
         torch.cuda.empty_cache()
@@ -3297,6 +3577,7 @@ def main() -> None:
         b5_vgicp_launches = cli_on_files(dev, card)
         fec_launches, fec_rec = frontend(dev, card)
         oracle_gate(oracle, pipeline_ok)
+    cg_calls = backend_path(dev, card, bench, large)
     # Launches on the path that runs each kernel: B1-B5 the refined main
     # path (phase 4), B6 the large map (phase 5), B7 the fused refined
     # path (phase 6); B8, which no module calls, the row-gather drive at
@@ -3310,10 +3591,11 @@ def main() -> None:
     records[4]["fec"] = fec_rec
     # After every timed phase, so that none runs under or after a
     # profiling session.
-    log_frame_votes_activities(dev, card, old_probe)
+    log_frame_votes_activities(dev, card, old_probe, cg_calls)
     for name in ("cli", "io.readers", "io.graph_json", "io.config_yaml", "native", "refine.vgicp", "eval.oracle",
                  "eval.plotting", "cluster.dcvc", "cluster.fec", "graph.build", "graph.local_map", "refine.ndt",
-                 "match.graph_match", "match.lapjv"):
+                 "match.graph_match", "match.lapjv", "backend.cg", "backend.pgo", "backend.ba",
+                 "slam.multisession"):
         importlib.import_module(f"sgtd_tpu_torch.{name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:

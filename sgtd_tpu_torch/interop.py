@@ -4,7 +4,7 @@ Converts the reference's NamedTuples (fields as NumPy arrays, or anything
 ``np.asarray`` takes) to the port's tensors on an explicit device and
 back, its config dataclasses, map artifacts and map index to the port's,
 the front end's results (clusters, FEC labels, NDT maps) and class
-routings,
+routings, the back end's problems (pose graphs, BA problems),
 carries keyframe clouds, masks and GICP covariances onto a device (padded
 to the DB's frame count), pads a DB's frame axis, and reads the
 reference's on-disk descriptor-DB format (v2, through
@@ -178,6 +178,21 @@ def routing_from_reference(routing):
     from sgtd_tpu_torch.graph.build import ClassRouting
 
     return ClassRouting(**{f.name: getattr(routing, f.name) for f in dataclasses.fields(ClassRouting)})
+
+
+def pose_graph_from_numpy(pg, device):
+    """A reference ``backend.pgo.PoseGraph`` (fields as NumPy arrays, or
+    anything ``np.asarray`` takes) as the port's, on ``device``."""
+    from sgtd_tpu_torch.backend.pgo import PoseGraph
+
+    return _convert(PoseGraph, pg, device)
+
+
+def ba_problem_from_numpy(ba, device):
+    """A reference ``backend.ba.BAProblem`` as the port's, on ``device``."""
+    from sgtd_tpu_torch.backend.ba import BAProblem
+
+    return _convert(BAProblem, ba, device)
 
 
 def to_numpy(result):

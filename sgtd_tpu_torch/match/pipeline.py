@@ -77,6 +77,11 @@ def localize(
     return localize_descriptors(db, query, config)
 
 
+# The reference's vmap of ``localize`` over a leading batch of query
+# graphs: the port's ``localize`` takes that axis itself.
+localize_batch = localize
+
+
 def localize_descriptors(
     db: DescriptorDB,
     query: Descriptors,

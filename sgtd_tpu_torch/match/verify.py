@@ -37,6 +37,17 @@ class VerifyResult(NamedTuple):
     inliers: torch.Tensor
 
 
+def triangle_solver(src_verts: torch.Tensor, ref_verts: torch.Tensor):
+    """Rigid transform mapping the src triangle onto the ref triangle.
+
+    src_verts/ref_verts: (..., 3, 3) with rows A, B, C. Returns (rot
+    (..., 3, 3), t (..., 3)) such that rot @ src + t ~= ref: the quaternion
+    Kabsch of ``ops.linalg3`` (always a proper rotation), the same optimum
+    as the reference's SVD with its reflection fix (STDesc.cpp:549-571).
+    """
+    return kabsch(src_verts, ref_verts)
+
+
 def verify_candidates(
     db: DescriptorDB,
     query: Descriptors,

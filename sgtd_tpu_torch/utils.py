@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -61,19 +63,41 @@ def sq_norm_fma(p: torch.Tensor) -> torch.Tensor:
     return fma_f32(z, z, fma_f32(y, y, x * x))
 
 
-def segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``out[s] = sum(x[i] for i with seg[i] == s)`` over axis 0, each
-    segment summed from zero in index order: the reference's
-    ``jax.ops.segment_sum`` on the CPU adds its updates one by one in that
-    order. A stable sort by segment and ``torch.segment_reduce`` keep it on
-    any device, with no atomics (``index_add_`` on the card adds in no
-    fixed order). ``seg`` holds values in [0, num_segments)."""
+class SegmentPlan(NamedTuple):
+    """How ``segment_sum`` groups a fixed segment-id vector: the stable
+    order of its entries by segment, and each segment's length."""
+
+    order: torch.Tensor    # (n,) int64
+    lengths: torch.Tensor  # (num_segments,) int64
+
+
+def segment_plan(seg: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The stable sort and the segment lengths of ``seg`` (values in
+    [0, num_segments)), taken once where one segment-id vector serves many
+    sums (the back end's edges and observations). No host sync: the lengths are an ``index_add_`` of int64 ones, where
+    ``bincount`` would synchronize."""
     seg = seg.reshape(-1).long()
     order = torch.sort(seg, stable=True).indices
-    # (index_add_ of int64 ones: bincount would synchronize with the host.)
     lengths = torch.zeros(num_segments, dtype=torch.long, device=seg.device).index_add_(0, seg, torch.ones_like(seg))
-    flat = x.reshape((seg.shape[0], -1))[order]
-    out = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0)
+    return SegmentPlan(order, lengths)
+
+
+def segment_sum(
+    x: torch.Tensor, seg: torch.Tensor | None, num_segments: int, plan: SegmentPlan | None = None
+) -> torch.Tensor:
+    """``out[s] = sum(x[i] for i with seg[i] == s)`` over axis 0, each
+    segment summed from zero in index order: the reference's
+    ``jax.ops.segment_sum`` (and ``.at[seg].add`` into zeros) on the CPU
+    adds its updates one by one in that order. A stable sort by segment and
+    ``torch.segment_reduce`` keep it on any device, with no atomics
+    (``index_add_`` on the card adds in no fixed order). ``seg`` holds
+    values in [0, num_segments); ``plan``, ``segment_plan(seg,
+    num_segments)`` taken beforehand, skips the sort, and ``seg`` is then
+    not read."""
+    if plan is None:
+        plan = segment_plan(seg, num_segments)
+    flat = x.reshape((plan.order.shape[0], -1))[plan.order]
+    out = torch.segment_reduce(flat, "sum", lengths=plan.lengths, axis=0)
     return out.reshape((num_segments,) + x.shape[1:])
 
 

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from sgtd_tpu.data.synthetic import make_map_and_queries
+from sgtd_tpu.desc import keys as jax_keys
 from sgtd_tpu.desc.keys import probe_cells as jax_probe_cells
 from sgtd_tpu.desc.triangles import build_descriptors as jax_build_descriptors
 from sgtd_tpu.graph.types import make_graph as jax_make_graph
+from sgtd_tpu_torch.desc import keys
 from sgtd_tpu_torch.desc.keys import probe_cells
 from sgtd_tpu_torch.desc.triangles import build_descriptors
 from sgtd_tpu_torch.interop import config_from_reference, graph_from_numpy
@@ -78,6 +80,38 @@ def test_probe_cells_matches_reference(small_config):
     got = probe_cells(torch.from_numpy(sides), torch.from_numpy(labels), config_from_reference(small_config).desc)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _key_inputs():
+    rng = np.random.default_rng(4)
+    sides = rng.uniform(0.0, 52.0, (400, 3)).astype(np.float32)
+    sides[:50] = np.round(sides[:50])  # on cell boundaries
+    sides[50:100] = np.floor(sides[50:100]) + 0.5  # round-half-up ties
+    sides[100:110] = rng.uniform(-1.0, 0.4, (10, 3))  # below the first cell
+    sides[110:120] = rng.uniform(52.0, 60.0, (10, 3))  # past the last cell
+    labels = rng.integers(-1, 14, (400, 3)).astype(np.int32)
+    return sides, labels
+
+
+@pytest.mark.parametrize("fn", ["db_keys", "probe_keys"])
+def test_keys_match_reference(small_config, fn):
+    """Integer keys (and the probe gate) equal to the reference's."""
+    sides, labels = _key_inputs()
+    want = getattr(jax_keys, fn)(jnp.asarray(sides), jnp.asarray(labels), small_config.desc)
+    got = getattr(keys, fn)(torch.from_numpy(sides), torch.from_numpy(labels), config_from_reference(small_config).desc)
+    for g, w in zip(*((got, want) if fn == "probe_keys" else ((got,), (want,)))):
+        assert g.dtype == torch.int32 or g.dtype == torch.bool
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pack_key_matches_reference():
+    rng = np.random.default_rng(5)
+    xyz = rng.integers(-3, 60, (3, 500)).astype(np.int32)
+    code = rng.integers(0, 2197, 500).astype(np.int32)
+    want = jax_keys.pack_key(*(jnp.asarray(v) for v in xyz), jnp.asarray(code), 52)
+    got = keys.pack_key(*(torch.from_numpy(v) for v in xyz), torch.from_numpy(code), 52)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("case", ["empty_graph", "fewer_nodes_than_near_num"])

@@ -112,8 +112,9 @@ def test_localize_scores_and_poses_match_reference(results):
 
 def test_port_imports_no_jax():
     """The port runs where JAX is absent: importing it, building a graph
-    from a labeled cloud and localizing must load no jax module and no
-    sgtd_tpu module at all."""
+    from a labeled cloud, localizing and the back end (PGO, BA, the
+    session correction) must load no jax module and no sgtd_tpu module at
+    all."""
     code = """
 import sys
 import torch
@@ -145,6 +146,12 @@ g = build_graph(pts, torch.full((256,), 17, dtype=torch.int32), torch.zeros(256,
                 DcvcConfig(max_points=256, max_voxels=256, max_clusters=8))
 assert int(g.mask.sum()) == 1
 assert graph_match(*(x[0] for x in mb[:4]), *(x[0] for x in mb[:4])).matches.shape == (32,) and lapjv(np.eye(3))[2] == 0.0
+from sgtd_tpu_torch.backend.ba import optimize_ba_cg
+from sgtd_tpu_torch.backend.pgo import chain_with_loops, optimize_pose_graph_cg
+from sgtd_tpu_torch.slam import localize_and_optimize_session
+odom = mb.pose[:4]
+pg = chain_with_loops(odom, torch.tensor([3]), torch.tensor([0]), (torch.linalg.inv(odom[3]) @ odom[0])[None], torch.ones(1))
+assert bool(torch.isfinite(optimize_pose_graph_cg(pg, iterations=1, cg_iterations=3)).all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
 print("BAD", bad)
 """

@@ -17,10 +17,12 @@ from sgtd_tpu.data.synthetic import make_map_and_queries
 from sgtd_tpu.db.database import build_database, tuned_config
 from sgtd_tpu.desc.triangles import build_descriptors as jax_build_descriptors
 from sgtd_tpu.match.search import candidate_search as jax_candidate_search
+from sgtd_tpu.match.verify import triangle_solver as jax_triangle_solver
 from sgtd_tpu.match.verify import verify_pairs as jax_verify_pairs
 from sgtd_tpu.ops.linalg3 import kabsch as jax_kabsch
 from sgtd_tpu_torch import interop
 from sgtd_tpu_torch.match.search import TRUNC_PAIRS, TRUNC_SCAN, candidate_search
+from sgtd_tpu_torch.match import localize, localize_batch, triangle_solver
 from sgtd_tpu_torch.match.verify import verify_pairs
 from sgtd_tpu_torch.ops.linalg3 import kabsch
 
@@ -137,3 +139,25 @@ def test_fallback_paths_match_reference(world, path):
                 getattr(got, f)[i].numpy(), np.asarray(getattr(want, f)), err_msg=f"query {i} {f}"
             )
     assert got.valid[:, 0].all() and got.pair_valid[:, 0].any(-1).all()
+
+
+def test_triangle_solver_matches_reference():
+    """The rigid transform of one triangle onto another (rot @ src + t ~=
+    ref): rotations within 1e-5 and translations (tens of metres) within
+    1e-4 of the reference's, on well-shaped triangles as in
+    test_kabsch_matches_reference. The port's match package exports it and
+    ``localize_batch`` (its ``localize``) as the reference's does."""
+    rng = np.random.default_rng(8)
+    src = rng.uniform(-20, 20, (256, 3, 3)).astype(np.float32)
+    sv = np.linalg.svd(src - src.mean(1, keepdims=True), compute_uv=False)
+    src = src[sv[:, 1] > 0.3 * sv[:, 0]][:64]
+    ang = rng.uniform(-np.pi, np.pi, 64)
+    R = np.zeros((64, 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1], R[:, 2, 2] = np.cos(ang), -np.sin(ang), np.sin(ang), np.cos(ang), 1
+    ref = (np.einsum("nij,nkj->nki", R, src) + rng.uniform(-50, 50, (64, 1, 3))
+           + rng.normal(0, 0.01, src.shape)).astype(np.float32)
+    want_r, want_t = jax_triangle_solver(jnp.asarray(src), jnp.asarray(ref))
+    got_r, got_t = triangle_solver(torch.from_numpy(src), torch.from_numpy(ref))
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=0, atol=1e-4)
+    assert localize_batch is localize
