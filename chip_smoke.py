@@ -220,6 +220,31 @@ Phases (any failure ends the run with a non-zero exit):
    gates: at least half the scans loop, every corrected pose within 1.0
    m. Prints each one's seconds.
 
+11. The multi-device paths (``sgtd_tpu_torch.parallel``), each rank a
+   process of ``python -m sgtd_tpu_torch.parallel.multihost_check`` started
+   by ``run_world`` on this card, on phase 3's DB and queries, phase 5's
+   DB and queries and phase 10's BA problem, written under build/phase11.
+   World A, NCCL, one rank: the sharded localizer at mesh (1, 1) and the
+   ring at 1 block on the 64 bench queries (frames, votes, found and best
+   frame equal to phase 3's, accepted candidates' poses within
+   ``POS_TOL_M``; B1-B3 launched), sharded BA at phase 10's 5,000 x
+   20,000 x 4 (phase 10's BA gates). Then a 2-rank NCCL world on the one
+   card, which NCCL refuses (printed, not gated). World B, gloo, 8 ranks
+   on the card: (a) the sharded localizer at mesh (2, 4) and (b) the ring
+   of 8 blocks on the first ``SHARDED_QUERIES`` bench queries (TRUNC_SCAN
+   0, sorted votes bit-identical and found equal to phase 3's, every top
+   pose within the success gates; (a)'s SHA-256 of found and best_frame
+   equal to the JAX reference's, ``REFERENCE_SHARDED``); (c) the sharded
+   localizer at mesh (1, 8) on phase 5's 32 queries (sorted votes
+   bit-identical to phase 5's, TRUNC_SCAN 0, SR >= 0.95; queries whose
+   found differs from phase 5's printed: the per-shard pair quota is the
+   reference's design); (d) sharded BA on 8 ranks (phase 10's BA gates,
+   the gap to phase 10's BA-CG printed). Every rank of (a) and (b) must
+   launch B1-B3, of (c) B6, B2 and B3; every rank checks that it loaded
+   no ``jax`` or ``sgtd_tpu`` module. Prints each world's start-up
+   seconds and each leg's seconds, load seconds, collective calls and
+   seconds (synchronized) and launches.
+
 After the last phase one ``torch.profiler`` session counts the device
 activities of one call of B1's wrapper at the bench shape (and of the
 first baseline's): this tree's must be one (with ``--kernels-only``, at
@@ -227,7 +252,7 @@ the end of phase 2); in the same session, those of one GN step of PGO-CG
 and BA-CG with one and with two CG iterations (their difference: a CG
 iteration's). No ``jax`` or ``sgtd_tpu`` module may be loaded, with
 the CLI, ``io``, ``native``, ``refine.vgicp``, ``eval.oracle``, the front
-end's and the back end's modules imported. The
+end's, the back end's and the multi-device modules imported. The
 line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -321,15 +346,19 @@ REFERENCE_SESSION = {
     "loop_frames": (-1, -1, -1, 2, 12, 6, 6, 4, 8, 4, 11, 10, 17, 10, 13, 15, 15, 22, 18, 18, 20, 21, 18, 22, 23,
                     20, 22, 27, 27, 27, 32, 31),
 }
+# Phase 11: the bench world's first SHARDED_QUERIES queries through the
+# JAX reference's sharded localizer at mesh (2, 4) (sgtd_tpu on the CPU's 8
+# virtual devices): DB rows and the SHA-256 of found and best_frame
+# (found_frames_sha256). tests/test_torch_sharded_match.py's slow
+# test_reference_sharded computes both again from sgtd_tpu.
+SHARDED_QUERIES = 16
+REFERENCE_SHARDED = {
+    "rows": 399070,
+    "sha256": "0ab90ff394ff6a6db6971c89229f3026db8ab4b7e546d628fb36efe23c6340b1",
+}
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
-# (module, counter) of every kernel, in B1-B8 order.
-COUNTERS = (
-    ("probe", "LAUNCHES"), ("expand", "LAUNCHES"), ("verify", "LAUNCHES"),
-    ("nn", "NN1_LAUNCHES"), ("nn", "KNN_LAUNCHES"), ("probe", "WIDE_LAUNCHES"),
-    ("gicp", "LINEARIZE_LAUNCHES"), ("probe", "GATHER_LAUNCHES"),
-)
 
 
 def fail(msg: str) -> None:
@@ -432,12 +461,6 @@ def body_ms(entry: str, dev, *args, launches: int = 50) -> float:
     return event_ms(lambda: _build.launch(entry, dev, *args), launches)
 
 
-def _modules():
-    from sgtd_tpu_torch.ops import expand, gicp, nn, probe, verify
-
-    return {"probe": probe, "expand": expand, "verify": verify, "nn": nn, "gicp": gicp}
-
-
 def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None,
                   wrapper_ms=None) -> dict:
     """One entry of the kernels' JSON record. ``ms`` is the kernel's time by
@@ -464,14 +487,16 @@ def log_bound(rec: dict) -> None:
 
 
 def reset_counts() -> None:
-    mods = _modules()
-    for mod, attr in COUNTERS:
-        setattr(mods[mod], attr, 0)
+    from sgtd_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_counts() -> list:
-    mods = _modules()
-    return [getattr(mods[mod], attr) for mod, attr in COUNTERS]
+    """Every kernel's launches since the last ``reset_counts``, B1-B8."""
+    from sgtd_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def ulp_close(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1945,7 +1970,7 @@ def main_path(dev, card: str):
     scans_s = [NUM_QUERIES / s for s in times]
     log(f"steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
         f"chunk {CHUNK}, synchronized per chunk) [{card}]")
-    return b8_launches, (cfg, db, world, queries, chunks)
+    return b8_launches, (cfg, db, world, queries, chunks), results
 
 
 def refined_stages(db, graphs, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg, rerank_k: int):
@@ -2439,7 +2464,7 @@ def large_map(dev, card: str, num_map: int):
         f"chunk {SCALE_CHUNK}, synchronized per chunk; {num_map} keyframes, {report.num_rows} rows, "
         f"{cfg.caps.max_scan_slots} slots) [{card}]")
     log(f"large map peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts[5], (cfg, db, world)
+    return counts[5], (cfg, db, world), {"graphs": qb, "results": res1, "gts": gts}
 
 
 def hard_world_inputs():
@@ -3478,7 +3503,167 @@ def backend_path(dev, card: str, bench, large) -> dict:
         "PGO-CG, 2 iterations": lambda: pgo.optimize_pose_graph_cg(pg, iterations=1, cg_iterations=2),
         "BA-CG, 1 iteration": lambda: ba.optimize_ba_cg(prob, iterations=1, cg_iterations=1),
         "BA-CG, 2 iterations": lambda: ba.optimize_ba_cg(prob, iterations=1, cg_iterations=2),
-    }
+    }, {"problem": prob, "gt": gt_ba, "result": r1}
+
+
+def check_localizer_leg(name: str, got: dict, single, gts, cfg, exact: bool, digest: str | None = None) -> None:
+    """Phase 11's gates on one localizer leg's outputs against the
+    single-device ``single`` (LocalizationResult of the same queries).
+    ``exact``: frames, votes, found and best frame equal and accepted
+    candidates' poses within POS_TOL_M (one shard); else the votes sorted
+    bit-identical, found equal and every top pose within the success gates."""
+    from sgtd_tpu_torch.eval.metrics import rpe
+    from sgtd_tpu_torch.match.search import TRUNC_SCAN
+
+    host = {f: getattr(single, f).cpu().numpy() for f in single._fields}
+    n_trunc = int(((got["truncated"] & TRUNC_SCAN) != 0).sum())
+    if n_trunc:
+        fail(f"{name}: {n_trunc} queries flagged TRUNC_SCAN")
+    if exact:
+        for f in ("frames", "votes", "found", "best_frame"):
+            if not np.array_equal(got[f], host[f]):
+                fail(f"{name}: {f} differ from the single-device localize")
+        ok = host["scores"] >= 0
+        gap = float(np.abs(got["poses"][ok] - host["poses"][ok]).max())
+        if not gap <= POS_TOL_M:
+            fail(f"{name}: accepted candidates' poses {gap:.3e} from the single-device localize (gate {POS_TOL_M})")
+        log(f"   {name}: frames, votes, found, best_frame equal to the single-device localize; poses within "
+            f"{gap:.3e}")
+        return
+    if not np.array_equal(np.sort(got["votes"], -1), np.sort(host["votes"], -1)):
+        fail(f"{name}: sorted votes differ from the single-device localize's")
+    if not np.array_equal(got["found"], host["found"]):
+        fail(f"{name}: found differs from the single-device localize's on queries "
+             f"{np.flatnonzero(got['found'] != host['found']).tolist()}")
+    errs = [rpe(np.asarray(gt), est) for gt, est in zip(gts, got["poses"][:, 0])]
+    worst = max(errs)
+    if not all(t < cfg.success_trans_m and r < cfg.success_rot_deg for t, r in errs):
+        fail(f"{name}: a top pose beyond {cfg.success_trans_m} m / {cfg.success_rot_deg} deg: {worst}")
+    line = f"   {name}: votes sorted bit-identical, found equal, TRUNC_SCAN 0, worst top pose {worst[0]:.3f} m"
+    if digest is not None:
+        got_digest = found_frames_sha256(got["found"], got["best_frame"])
+        if got_digest != digest:
+            fail(f"{name}: sha256 of found and best_frame {got_digest} differs from the JAX reference's {digest}")
+        line += f"; sha256 {got_digest[:8]}... = REFERENCE_SHARDED"
+    log(line)
+
+
+def check_ba_leg(name: str, got: dict, gt, phase10) -> None:
+    """Phase 10's BA gates on a sharded BA leg, and its gap to phase 10's BA-CG."""
+    costs = got["costs"]
+    t_err = np.linalg.norm(got["poses"][:, :3, 3] - gt[:, :3, 3], axis=1)
+    gap = max(float(np.abs(got[f] - getattr(phase10, f).cpu().numpy()).max()) for f in ("poses", "landmarks"))
+    log(f"   {name}: cost {costs[0]:.4e} -> {costs[-1]:.4e}, median translation error {np.median(t_err):.4f} m; "
+        f"largest gap to phase 10's BA-CG {gap:.3e}")
+    if not (np.isfinite(got["poses"]).all() and costs[-1] < 1e-2 * costs[0] and np.median(t_err) < 0.05):
+        fail(f"{name}: cost {costs[0]:.4e} -> {costs[-1]:.4e} or median error {np.median(t_err):.4f} m")
+
+
+def log_world(name: str, summary: dict, card: str) -> None:
+    log(f"{name}: {summary['world']} rank(s), {summary['backend']}, start-up {summary['startup_s']:.2f} s [{card}]")
+    for leg, ranks in summary["legs"].items():
+        if not ranks[0]:
+            continue
+        secs = [r["seconds"] for r in ranks]
+        coll = [r["collective_s"] for r in ranks]
+        first = f", first pass {max(r['first_s'] for r in ranks):.3f} s" if "first_s" in ranks[0] else ""
+        log(f"   {leg}: {max(secs):.3f} s (slowest rank; fastest {min(secs):.3f}{first}), "
+            f"load {max(r['load_s'] for r in ranks):.2f} s, "
+            f"collectives {ranks[0]['collective_calls']} calls a rank, {max(coll):.3f} s "
+            f"(share {max(c / s for c, s in zip(coll, secs)):.3f} of the slowest), launches B1-B8 of rank 0 "
+            f"{ranks[0]['launches']}")
+
+
+def multi_device(card: str, bench, bench_run: dict, large, large_run: dict, ba_run: dict, num_map: int) -> dict:
+    """Phase 11: the multi-device paths, each rank a process on this card
+    (``parallel.multihost_check.run_world``), on phase 3's and phase 5's DBs
+    and phase 10's BA problem written under build/phase11. World A: NCCL,
+    one rank; world B: gloo, 8 ranks (NCCL takes one rank a card, which a
+    2-rank NCCL world shows first). Returns every rank's launches (B1-B8)
+    on world B's localizer legs."""
+    from sgtd_tpu_torch.eval.metrics import success_rate
+    from sgtd_tpu_torch.graph.types import SemanticGraph
+    from sgtd_tpu_torch.match.pipeline import LocalizationResult
+    from sgtd_tpu_torch.parallel.multihost_check import read_outputs, run_world, write_inputs
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    cat = lambda parts: type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+    head = lambda t, n: type(t)(*(x[:n] for x in t))
+    cfg, db, _ = bench
+    graphs, single = cat(bench_run["chunks"]), cat(bench_run["results"])
+    cfg5, db5, _ = large
+    single5 = cat(large_run["results"])
+    t0 = time.perf_counter()
+    write_inputs(os.path.join(root, "bench64"), db=db, graphs=graphs, config=cfg)
+    write_inputs(os.path.join(root, "bench16"), db=db, graphs=head(graphs, SHARDED_QUERIES), config=cfg)
+    write_inputs(os.path.join(root, "large"), db=db5, graphs=large_run["graphs"], config=cfg5)
+    write_inputs(os.path.join(root, "ba"), ba=ba_run["problem"])
+    log(f"phase 11 inputs written in {time.perf_counter() - t0:.2f} s ({db.keys.shape[0]} and {db5.keys.shape[0]} "
+        f"DB rows, BA {tuple(ba_run['problem'].obs_frame.shape)} observations)")
+    torch.cuda.empty_cache()
+    gt_ba = ba_run["gt"]
+    ba_leg = f"ba:{BA_GN}:{BA_CG}@ba"
+
+    # World A: NCCL, one rank. Every collective is the identity and the
+    # pair quota whole: the single-device results, exactly.
+    legs_a = [f"sharded:1x1:{CHUNK}@bench64", f"ring:{CHUNK}@bench64", ba_leg]
+    out_a = os.path.join(root, "out_a")
+    sa = run_world(1, "nccl", "cuda:0", root, legs_a, timeout=600, outputs=out_a)
+    log_world("world A", sa, card)
+    for leg in legs_a[:2]:
+        check_localizer_leg(f"A {leg}", read_outputs(out_a, leg), single, bench_run["gts"], cfg, exact=True)
+        if min(r["launches"][i] for r in sa["legs"][leg_key(leg)] for i in range(3)) <= 0:
+            fail(f"A {leg}: B1-B3 must launch: {[r['launches'] for r in sa['legs'][leg_key(leg)]]}")
+    check_ba_leg(f"A {ba_leg}", read_outputs(out_a, ba_leg), gt_ba, ba_run["result"])
+
+    # NCCL refuses two ranks on one card: shown, not gated.
+    try:
+        with mock.patch.dict(os.environ, {"NCCL_DEBUG": "WARN"}):
+            run_world(2, "nccl", "cuda:0", root, ["ping"], timeout=120, outputs=os.path.join(root, "out_dup"))
+        log("NCCL, two ranks on one card: the world ran")
+    except (RuntimeError, TimeoutError) as err:
+        lines = [ln.strip() for ln in str(err).splitlines() if "Duplicate GPU" in ln]
+        lines += [ln.strip() for ln in str(err).splitlines() if "NCCL error" in ln]
+        log(f"NCCL, two ranks on one card: refused ({type(err).__name__}): {(lines or [str(err).splitlines()[0]])[0]}")
+
+    # World B: gloo, 8 ranks on this card (the reference tests' 8 devices).
+    leg_a, leg_b, leg_c = "sharded:2x4@bench16", "ring@bench16", f"sharded:1x8:{SCALE_CHUNK}@large"
+    out_b = os.path.join(root, "out_b")
+    sb = run_world(8, "gloo", "cuda:0", root, [leg_a, leg_b, leg_c, ba_leg], timeout=900, outputs=out_b)
+    log_world("world B", sb, card)
+    single16 = LocalizationResult(*(x[:SHARDED_QUERIES] for x in single))
+    gts16 = bench_run["gts"][:SHARDED_QUERIES]
+    check_localizer_leg(f"B {leg_a}", read_outputs(out_b, leg_a), single16, gts16, cfg, exact=False,
+                        digest=REFERENCE_SHARDED["sha256"])
+    check_localizer_leg(f"B {leg_b}", read_outputs(out_b, leg_b), single16, gts16, cfg, exact=False)
+    got_c = read_outputs(out_b, leg_c)
+    host5 = {f: getattr(single5, f).cpu().numpy() for f in ("votes", "found")}
+    if int((got_c["truncated"] & 1).sum()) or not np.array_equal(np.sort(got_c["votes"], -1),
+                                                                  np.sort(host5["votes"], -1)):
+        fail(f"B {leg_c}: TRUNC_SCAN set or sorted votes differ from phase 5's")
+    sr = success_rate(large_run["gts"], got_c["poses"][:, 0], got_c["found"], cfg5)
+    differ = np.flatnonzero(got_c["found"] != host5["found"]).tolist()
+    log(f"   B {leg_c} ({num_map} keyframes): votes sorted bit-identical to phase 5's, TRUNC_SCAN 0, SR {sr:.4f}; "
+        f"queries whose found differs from phase 5's (a pair quota of "
+        f"{max(cfg5.caps.pairs_per_candidate // 8, 1)} a shard): {differ}")
+    if sr < SR_GATE:
+        fail(f"B {leg_c}: success rate {sr:.4f} below {SR_GATE}")
+    check_ba_leg(f"B {ba_leg}", read_outputs(out_b, ba_leg), gt_ba, ba_run["result"])
+    launches = {leg: [r["launches"] for r in sb["legs"][leg_key(leg)]] for leg in (leg_a, leg_b, leg_c)}
+    for leg, need in ((leg_a, (0, 1, 2)), (leg_b, (0, 1, 2)), (leg_c, (5, 1, 2))):
+        if min(n[i] for n in launches[leg] for i in need) <= 0:
+            fail(f"B {leg}: every rank must launch B{', B'.join(str(i + 1) for i in need)}: {launches[leg]}")
+    log(f"   every rank launched B1-B3 on {leg_a} and {leg_b}, B6, B2 and B3 on {leg_c}")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def leg_key(leg: str) -> str:
+    from sgtd_tpu_torch.parallel.multihost_check import Leg
+
+    return Leg.parse(leg).name
 
 
 def ptxas_usage(text: str) -> list:
@@ -3560,8 +3745,9 @@ def main() -> None:
         log_frame_votes_activities(dev, card, old_probe)
         log(f"--kernels-only: stopping after phase 2 ({time.perf_counter() - T_START:.1f} s)")
         return
-    b8_launches, ctx = main_path(dev, card)
+    b8_launches, ctx, bench_results = main_path(dev, card)
     bench = ctx[:3]
+    bench_run = {"chunks": ctx[4], "gts": [g.pose for g in ctx[3]], "results": bench_results}
     launches, map_knn_launches, *refined = refined_path(dev, card, *ctx, votes_libs=votes_libs)
     del ctx
     # Phase 7's oracle (plain Python on the host, about a minute on one of
@@ -3569,7 +3755,7 @@ def main() -> None:
     # 5-8 and is read after phase 8.
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         oracle = pool.submit(oracle_subsample, ORACLE_QUERIES)
-        b6_launches, large = large_map(dev, card, args.scale_frames)
+        b6_launches, large, large_run = large_map(dev, card, args.scale_frames)
         b7_launches = fused_path(dev, card, *refined)
         del refined
         torch.cuda.empty_cache()
@@ -3577,7 +3763,8 @@ def main() -> None:
         b5_vgicp_launches = cli_on_files(dev, card)
         fec_launches, fec_rec = frontend(dev, card)
         oracle_gate(oracle, pipeline_ok)
-    cg_calls = backend_path(dev, card, bench, large)
+    cg_calls, ba_run = backend_path(dev, card, bench, large)
+    multi_launches = multi_device(card, bench, bench_run, large, large_run, ba_run, args.scale_frames)
     # Launches on the path that runs each kernel: B1-B5 the refined main
     # path (phase 4), B6 the large map (phase 5), B7 the fused refined
     # path (phase 6); B8, which no module calls, the row-gather drive at
@@ -3589,13 +3776,17 @@ def main() -> None:
     records[4]["vgicp_launches"] = b5_vgicp_launches
     records[4]["fec_launches"] = fec_launches
     records[4]["fec"] = fec_rec
+    # Phase 11's launches a rank on the multi-device legs, of B1-B3 and B6.
+    for i in (0, 1, 2, 5):
+        records[i]["multi_device_launches"] = {leg: [n[i] for n in ranks] for leg, ranks in multi_launches.items()}
     # After every timed phase, so that none runs under or after a
     # profiling session.
     log_frame_votes_activities(dev, card, old_probe, cg_calls)
     for name in ("cli", "io.readers", "io.graph_json", "io.config_yaml", "native", "refine.vgicp", "eval.oracle",
                  "eval.plotting", "cluster.dcvc", "cluster.fec", "graph.build", "graph.local_map", "refine.ndt",
                  "match.graph_match", "match.lapjv", "backend.cg", "backend.pgo", "backend.ba",
-                 "slam.multisession"):
+                 "slam.multisession", "parallel.mesh", "parallel.sharded_match", "parallel.ring_sweep",
+                 "parallel.sharded_ba", "parallel.multihost_check", "eval.benchworld", "utils.profiling"):
         importlib.import_module(f"sgtd_tpu_torch.{name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sgtd_tpu"))
     if loaded:

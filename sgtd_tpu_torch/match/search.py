@@ -102,6 +102,7 @@ def _bucket_lookup(
     cells: torch.Tensor,
     code: torch.Tensor,
     probe_ok: torch.Tensor,
+    row_offset: torch.Tensor | int | None = None,
 ):
     """(start, end) row range of each (cell, code) probe bucket. cells
     (..., 27), code (...).
@@ -110,11 +111,21 @@ def _bucket_lookup(
     an in-cell bisection over the sorted codes of [cell_start[c],
     cell_start[c + 1]) for code and code + 1, ceil(log2(M)) steps, which
     covers any cell.
+
+    With ``row_offset`` the DB's row fields are one contiguous shard of a
+    larger table whose first row is global row ``row_offset``: the global
+    ranges (bucket table, cell_start) are clipped into the shard's local
+    rows, so a bucket split across shards is scanned partly on each side.
     """
+    m_rows = db.keys.shape[0]
     if not db.has_direct_table:
-        m_rows = db.codes.shape[0]
         cs = db.cell_start[cells.long()]
         ce = db.cell_start[cells.long() + 1]
+        if row_offset is not None:
+            # The codes bisected below are this shard's rows; a cell split
+            # across shards stays code-sorted within each side.
+            cs = (cs - row_offset).clamp(0, m_rows)
+            ce = (ce - row_offset).clamp(0, m_rows)
         target = torch.stack([code, code + 1])[..., None]  # (2, ..., 1)
         lo = cs.expand((2,) + cs.shape)
         hi = ce.expand((2,) + ce.shape)
@@ -131,6 +142,9 @@ def _bucket_lookup(
     word2 = db.bucket_table[idx.clamp(max=db.bucket_table.shape[0] - 1).long()]
     start = word2[..., 0]
     end = start + torch.where(ok, word2[..., 1], 0)
+    if row_offset is not None:
+        start = (start - row_offset).clamp(0, m_rows)
+        end = (end - row_offset).clamp(0, m_rows)
     return start, end, ok
 
 
@@ -140,11 +154,17 @@ def probe_and_hits(
     cfg: DescriptorConfig,
     search: SearchConfig,
     caps: CapacityConfig,
+    row_offset: torch.Tensor | int | None = None,
     with_sel: bool = True,
 ) -> ProbeHits:
     """Stage 1: bucket probes, ragged scan, rough filter, vote tally, and
     (with ``with_sel``) the per-descriptor hit compaction for the pair
-    lists."""
+    lists.
+
+    ``row_offset``: where ``db``'s row fields are a contiguous shard of a
+    larger table, the global row of the shard's first row; the votes are
+    then the shard's part of the whole table's and ``sel_row`` holds local
+    rows."""
     bsz, d_max = query.mask.shape
     if d_max > 1 << 16:
         raise ValueError(
@@ -157,7 +177,7 @@ def probe_and_hits(
     m_rows = db.keys.shape[0]
 
     cells, code, gate = probe_cells(query.sides, query.labels, cfg)  # (B, D, 27)
-    start, end, probe_ok = _bucket_lookup(db, cells, code, gate & query.mask[..., None])
+    start, end, probe_ok = _bucket_lookup(db, cells, code, gate & query.mask[..., None], row_offset)
 
     # --- ragged (CSR-style) bucket scan over the exact bucket lengths. ---
     n_jobs = d_max * 27
@@ -303,11 +323,17 @@ def extract_pairs(
     return take(hq_s), take(hr_s), pair_valid
 
 
-def probe_ranges(db: DescriptorDB, query: Descriptors, cfg: DescriptorConfig):
+def probe_ranges(
+    db: DescriptorDB,
+    query: Descriptors,
+    cfg: DescriptorConfig,
+    row_offset: torch.Tensor | int | None = None,
+):
     """(start, end) row range of each (descriptor, probe) bucket and the
-    probe validity mask, each (B, D, 27)."""
+    probe validity mask, each (B, D, 27); shard-local with ``row_offset``
+    (see :func:`_bucket_lookup`)."""
     cells, code, gate = probe_cells(query.sides, query.labels, cfg)
-    return _bucket_lookup(db, cells, code, gate & query.mask[..., None])
+    return _bucket_lookup(db, cells, code, gate & query.mask[..., None], row_offset)
 
 
 def scan_totals(db: DescriptorDB, query: Descriptors, cfg: DescriptorConfig) -> torch.Tensor:
@@ -341,6 +367,7 @@ def extract_pairs_by_frame(
     cand_valid: torch.Tensor,
     search: SearchConfig,
     caps: CapacityConfig,
+    row_offset: torch.Tensor | int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Candidate-major pair pass: every (query descriptor, DB row) match of
     each candidate frame, in (row, probe) order, capped at
@@ -351,7 +378,9 @@ def extract_pairs_by_frame(
     row's key is bisected into the query's sorted probe table and the
     caps.probes_per_key probes from there are tested for key equality and
     the rough side filter. Outputs (B, C, pairs_per_candidate): qidx,
-    row, valid.
+    row, valid. With ``row_offset`` (``db``'s rows a shard of a larger
+    table, its first row global row ``row_offset``) only the shard's rows
+    contribute, and ``row`` is shard-local.
     """
     p_cap = caps.pairs_per_candidate
     bsz, c_n = cand_frames.shape
@@ -364,6 +393,10 @@ def extract_pairs_by_frame(
     pos = fs[..., None] + torch.arange(caps.max_descriptors, dtype=torch.int32, device=dev)
     row_ok = (pos < fe[..., None]) & cand_valid[..., None]  # (B, C, R)
     rows = db.frame_rows[pos.clamp(0, db.frame_rows.shape[0] - 1).long()]
+    if row_offset is not None:
+        rows = rows - row_offset
+        row_ok = row_ok & (rows >= 0) & (rows < m_rows)
+        rows = rows.clamp(0, m_rows - 1)
     rows = rows.clamp(max=m_rows - 1)
     rowkey = db.keys[rows.long()]
     w2 = db.packed2[rows.long()]

@@ -229,7 +229,7 @@ def test_probe_and_hits_hands_its_offsets_to_expand_jobs():
         raise RuntimeError("stop after the expansion")
 
     with mock.patch.object(search.expand, "expand_jobs", spy), mock.patch.object(
-            search, "_bucket_lookup", lambda db, cells, code, ok: (
+            search, "_bucket_lookup", lambda db, cells, code, ok, row_offset=None: (
                 torch.zeros(cells.shape, dtype=torch.int32), torch.ones(cells.shape, dtype=torch.int32), ok)):
         from sgtd_tpu_torch.config import SGTDConfig
 
