@@ -20,7 +20,7 @@ import torch
 
 from sgtd_tpu_torch.config import CapacityConfig, DescriptorConfig
 from sgtd_tpu_torch.graph.types import SemanticGraph
-from sgtd_tpu_torch.utils import batch_take, sqrt_rn
+from sgtd_tpu_torch.utils import batch_take, profiling, sqrt_rn
 
 _BIG = 1e30
 
@@ -88,6 +88,7 @@ def _norm3_fma(d: torch.Tensor) -> torch.Tensor:
     return sqrt_rn(acc)
 
 
+@profiling.traced("desc.triangles")
 def build_descriptors(
     graph: SemanticGraph,
     cfg: DescriptorConfig = DescriptorConfig(),

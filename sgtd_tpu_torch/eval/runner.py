@@ -29,6 +29,7 @@ from sgtd_tpu_torch.match.pipeline import localize, localize_exact, localize_ref
 from sgtd_tpu_torch.match.search import TRUNC_SCAN
 from sgtd_tpu_torch.refine.gicp import gicp_rerank
 from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, vgicp_rerank
+from sgtd_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -64,6 +65,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@profiling.traced("index.build")
 def build_map_index(
     map_graphs: Sequence[SemanticGraph],
     config: SGTDConfig,
@@ -75,8 +77,10 @@ def build_map_index(
     device = torch.device(device)
     t0 = time.time()
     batch = stack_graphs(map_graphs, device)
-    descs = build_descriptors_chunked(batch, config)
-    db, report = build_database_on_device(descs, batch.pose, config.desc)
+    with profiling.span("index.descriptors"):
+        descs = build_descriptors_chunked(batch, config)
+    with profiling.span("index.table"):
+        db, report = build_database_on_device(descs, batch.pose, config.desc)
     _sync(device)
     return MapIndex(
         db=db,
@@ -104,6 +108,7 @@ def _apply_rerank_pick(cfg, ks, frames_q, fitg, frac, tf, init_poses, frame_pose
     return best_poses
 
 
+@profiling.traced("refine.single")
 def _rerank_single(index, cfg, res_one, qc, qm, art, rerank_k, best_pose):
     """Artifact rerank of ONE query (the truncation-fallback path).
 

@@ -34,7 +34,7 @@ from sgtd_tpu_torch.match.search import (
 from sgtd_tpu_torch.match.verify import VerifyResult, verify_candidates
 from sgtd_tpu_torch.refine.gicp import gicp_rerank
 from sgtd_tpu_torch.refine.vgicp import GaussianVoxelMap, vgicp_rerank
-from sgtd_tpu_torch.utils import disable_tf32
+from sgtd_tpu_torch.utils import disable_tf32, profiling
 
 
 class LocalizationResult(NamedTuple):
@@ -66,6 +66,7 @@ class LocalizationResult(NamedTuple):
     truncated: torch.Tensor
 
 
+@profiling.traced("localize")
 def localize(
     db: DescriptorDB,
     graphs: SemanticGraph,
@@ -94,6 +95,7 @@ def localize_descriptors(
     return rank_candidates(db, query, cand, ver, config)
 
 
+@profiling.traced("localize_exact")
 def localize_exact(
     db: DescriptorDB,
     graphs: SemanticGraph,
@@ -111,19 +113,25 @@ def localize_exact(
     or pair is lost, and ``truncated`` is 0.
     """
     disable_tf32()
+    profiling.count("search.fallback_queries", graphs.centers.shape[0])
     query = build_descriptors(graphs, config.desc, config.caps)
-    total = int(scan_totals(db, query, config.desc).max())
-    slots = 8192
-    while slots < total:
-        slots *= 2
-    cfg = config.replace(caps=dataclasses.replace(config.caps, max_scan_slots=slots))
+    with profiling.span("match.search"):
+        with profiling.span("search.totals"):
+            total = int(scan_totals(db, query, config.desc).max())
+        slots = 8192
+        while slots < total:
+            slots *= 2
+        cfg = config.replace(caps=dataclasses.replace(config.caps, max_scan_slots=slots))
 
-    ph = probe_and_hits(db, query, cfg.desc, cfg.search, cfg.caps, with_sel=False)
-    cand_votes, cand_frames, cand_valid = select_candidates(ph.votes, cfg.search)
-    pkeys, pdesc = build_probe_table(query, cfg.desc)
-    pair_qidx, pair_row, pair_valid = extract_pairs_by_frame(
-        db, query, pkeys, pdesc, cand_frames, cand_valid, cfg.search, cfg.caps
-    )
+        with profiling.span("search.probe"):
+            ph = probe_and_hits(db, query, cfg.desc, cfg.search, cfg.caps, with_sel=False)
+        with profiling.span("search.select"):
+            cand_votes, cand_frames, cand_valid = select_candidates(ph.votes, cfg.search)
+        with profiling.span("search.pairs"):
+            pkeys, pdesc = build_probe_table(query, cfg.desc)
+            pair_qidx, pair_row, pair_valid = extract_pairs_by_frame(
+                db, query, pkeys, pdesc, cand_frames, cand_valid, cfg.search, cfg.caps
+            )
     cand = CandidateSet(
         frames=cand_frames,
         votes=cand_votes,
@@ -137,6 +145,7 @@ def localize_exact(
     return rank_candidates(db, query, cand, ver, cfg)
 
 
+@profiling.traced("match.rank")
 def rank_candidates(
     db: DescriptorDB,
     query: Descriptors,
@@ -191,6 +200,7 @@ class RefinedResult(NamedTuple):
     result: LocalizationResult
 
 
+@profiling.traced("localize_refined")
 def localize_refined(
     db: DescriptorDB,
     graphs: SemanticGraph,
@@ -253,6 +263,7 @@ def localize_refined(
     )
 
 
+@profiling.traced("refine.pick")
 def rerank_pick(fitness_gated, inlier_frac, refined_poses, init_poses, found, gcfg: GicpConfig):
     """Candidate pick and divergence guard of the GICP rerank (reference
     ``sgtd_tpu.match.pipeline.rerank_pick``).

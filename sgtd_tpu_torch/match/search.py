@@ -25,7 +25,7 @@ from sgtd_tpu_torch.db.database import DescriptorDB
 from sgtd_tpu_torch.desc.keys import _N_CODES, probe_cells
 from sgtd_tpu_torch.desc.triangles import Descriptors
 from sgtd_tpu_torch.ops import expand, probe
-from sgtd_tpu_torch.utils import batch_take
+from sgtd_tpu_torch.utils import batch_take, profiling
 
 # Truncation bitmask values (CandidateSet.truncated / LocalizationResult).
 TRUNC_SCAN = 1  # ragged scan overflowed max_scan_slots: votes may be lost
@@ -439,6 +439,7 @@ def extract_pairs_by_frame(
     return packed[..., 0], packed[..., 1], packed[..., 2] > 0
 
 
+@profiling.traced("match.search")
 def candidate_search(
     db: DescriptorDB,
     query: Descriptors,
@@ -454,18 +455,21 @@ def candidate_search(
     (extract_pairs_by_frame), whose cost does not grow with L.
     """
     use_sel = caps.max_scan_slots <= caps.sel_max_scan_slots
-    ph = probe_and_hits(db, query, cfg, search, caps, with_sel=use_sel)
-    cand_votes, cand_frames, cand_valid = select_candidates(ph.votes, search)
-    if use_sel:
-        pair_qidx, pair_row, pair_valid = extract_pairs(
-            ph.sel_row, ph.sel_frame, cand_frames, cand_valid,
-            caps.pairs_per_candidate, db.frame_poses.shape[0],
-        )
-    else:
-        pkeys, pdesc = build_probe_table(query, cfg)
-        pair_qidx, pair_row, pair_valid = extract_pairs_by_frame(
-            db, query, pkeys, pdesc, cand_frames, cand_valid, search, caps
-        )
+    with profiling.span("search.probe"):
+        ph = probe_and_hits(db, query, cfg, search, caps, with_sel=use_sel)
+    with profiling.span("search.select"):
+        cand_votes, cand_frames, cand_valid = select_candidates(ph.votes, search)
+    with profiling.span("search.pairs"):
+        if use_sel:
+            pair_qidx, pair_row, pair_valid = extract_pairs(
+                ph.sel_row, ph.sel_frame, cand_frames, cand_valid,
+                caps.pairs_per_candidate, db.frame_poses.shape[0],
+            )
+        else:
+            pkeys, pdesc = build_probe_table(query, cfg)
+            pair_qidx, pair_row, pair_valid = extract_pairs_by_frame(
+                db, query, pkeys, pdesc, cand_frames, cand_valid, search, caps
+            )
     truncated = (
         ph.scan_overflow.to(torch.int32) * TRUNC_SCAN
         + ph.pair_overflow.to(torch.int32) * TRUNC_PAIRS
@@ -481,6 +485,7 @@ def candidate_search(
     )
 
 
+@profiling.traced("index.calibrate")
 def calibrate_scan_slots(db: DescriptorDB, sample_queries: Descriptors, config, margin: float = 1.5):
     """``config`` with caps.max_scan_slots fitted (:func:`fit_scan_slots`)
     to the largest probe-scan total of a batch of sample queries."""

@@ -33,9 +33,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
+
+from sgtd_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
@@ -95,6 +98,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"libsgtd_kernels_{_digest()}.so"
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists.
 
@@ -104,7 +111,7 @@ def build() -> Path:
     compilers' output (ptxas register and shared-memory use) is kept
     beside the library as ``.log``.
     """
-    out = BUILD_DIR / f"libsgtd_kernels_{_digest()}.so"
+    out = _library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -137,12 +144,21 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use; RuntimeError without nvcc."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, built on first use; RuntimeError without nvcc.
+
+    Records ``ops.load`` (``profiling.loads``): ``seconds`` to load and
+    bind the library, ``build_s`` to find or build it, and ``compiled``,
+    whether nvcc ran."""
+    t0 = time.perf_counter()
+    compiled = not _library_path().exists()
+    path = build()
+    t1 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    profiling.record_load("ops.load", time.perf_counter() - t1, build_s=t1 - t0, compiled=compiled)
     return lib
 
 

@@ -33,7 +33,7 @@ from sgtd_tpu_torch.ops import gicp as gicp_ops
 from sgtd_tpu_torch.ops import nn
 from sgtd_tpu_torch.ops.linalg3 import inv3x3, sym_eig3x3
 from sgtd_tpu_torch.refine.lsq import gn_solve, lm_solve
-from sgtd_tpu_torch.utils import batch_take, disable_tf32
+from sgtd_tpu_torch.utils import batch_take, disable_tf32, profiling
 
 # Where masked points are displaced, so no kernel special-cases a mask.
 FAR = 1e6
@@ -89,6 +89,7 @@ def knn_indices(points: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tenso
     return nn.knn(pts, pts, k)
 
 
+@profiling.traced("refine.covariances")
 def point_covariances(points: torch.Tensor, mask: torch.Tensor, cfg: GicpConfig) -> torch.Tensor:
     """Plane-regularized per-point covariances (fast_gicp_impl.hpp:244-290):
     (..., N, 3), (..., N) -> (..., N, 3, 3); identity at masked points."""
@@ -195,6 +196,27 @@ def _gicp_align_fused(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, c
     return linearize, _error_of(src)
 
 
+@profiling.traced("refine.lm")
+def _solve(linearize, error, T0: torch.Tensor, cfg: GicpConfig):
+    """The configured solver (``cfg.optimizer``: LM, else GN) from T0 (P, 4, 4)."""
+    if cfg.optimizer == "lm":
+        return lm_solve(
+            linearize, error, T0,
+            max_iterations=cfg.max_iterations,
+            lm_inner=cfg.lm_max_inner,
+            rot_eps=cfg.rot_eps,
+            trans_eps=cfg.trans_eps,
+            init_lambda_factor=cfg.lm_init_lambda_factor,
+        )
+    return gn_solve(
+        linearize, T0,
+        max_iterations=cfg.max_iterations,
+        rot_eps=cfg.rot_eps,
+        trans_eps=cfg.trans_eps,
+        damping=cfg.gn_damping,
+    )
+
+
 def gicp_align(
     src: torch.Tensor,
     src_mask: torch.Tensor,
@@ -229,27 +251,12 @@ def gicp_align(
     linearize, error = callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg)
 
     T0 = init_transform.reshape(-1, 4, 4).to(src.dtype)
-    if cfg.optimizer == "lm":
-        res = lm_solve(
-            linearize, error, T0,
-            max_iterations=cfg.max_iterations,
-            lm_inner=cfg.lm_max_inner,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            init_lambda_factor=cfg.lm_init_lambda_factor,
-        )
-    else:
-        res = gn_solve(
-            linearize, T0,
-            max_iterations=cfg.max_iterations,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            damping=cfg.gn_damping,
-        )
+    res = _solve(linearize, error, T0, cfg)
     T_final = res.transform
-    nn_idx, sqd = nn.nn1(_moved(src, T_final), tgt_eff)
-    valid = src_mask & batch_take(tgt_mask, nn_idx)
-    fitness, n_inl, fitness_gated, inlier_frac = _fitness_stats(sqd, valid, cfg)
+    with profiling.span("refine.fitness"):
+        nn_idx, sqd = nn.nn1(_moved(src, T_final), tgt_eff)
+        valid = src_mask & batch_take(tgt_mask, nn_idx)
+        fitness, n_inl, fitness_gated, inlier_frac = _fitness_stats(sqd, valid, cfg)
     return GicpResult(
         transform=T_final.reshape(batch + (4, 4)),
         fitness=fitness.reshape(batch),
@@ -259,6 +266,7 @@ def gicp_align(
     )
 
 
+@profiling.traced("refine.rerank")
 def gicp_rerank(
     src: torch.Tensor,
     src_mask: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 
 from sgtd_tpu_torch.geom import se3
 from sgtd_tpu_torch.ops.linalg3 import chol_solve6
+from sgtd_tpu_torch.utils import profiling
 
 
 class LsqResult(NamedTuple):
@@ -50,6 +51,16 @@ def _is_converged(delta_T: torch.Tensor, rot_eps: float, trans_eps: float) -> to
 # and it saves whole linearizations when a batch converges early. A
 # rerank chunk of 64 problems mostly runs all trips: one unconverged
 # problem keeps the loop going.
+#
+# With tracing on, each trip is a span ``refine.lm.trip``; a solve counts
+# its trips (``lm.trips``) and problems (``lm.problems``), and each trip
+# holds its entry ``done`` mask for ``lm.live`` (the problems still live
+# on entry), folded at ``profiling.flush``.
+
+
+def _count_solve(trips: int, batch: torch.Size) -> None:
+    profiling.count("lm.trips", trips)
+    profiling.count("lm.problems", batch.numel())
 
 
 def gn_solve(
@@ -67,16 +78,21 @@ def gn_solve(
     T = T0
     done = torch.zeros(batch, dtype=torch.bool, device=T0.device)
     y = torch.full(batch, float("inf"), dtype=T0.dtype, device=T0.device)
+    trips = 0
     for _ in range(max_iterations):
         if bool(done.all()):
             break
-        H, g, y0, _ = linearize(T)
-        d = chol_solve6(H + damping * eye6, -g)
-        delta_T = se3.se3_exp(d)
-        conv = _is_converged(delta_T, rot_eps, trans_eps)
-        T = torch.where(done[..., None, None], T, delta_T @ T)
-        y = torch.where(done, y, y0)
-        done = done | conv
+        with profiling.span("refine.lm.trip"):
+            trips += 1
+            profiling.count_mask("lm.live", done, False)
+            H, g, y0, _ = linearize(T)
+            d = chol_solve6(H + damping * eye6, -g)
+            delta_T = se3.se3_exp(d)
+            conv = _is_converged(delta_T, rot_eps, trans_eps)
+            T = torch.where(done[..., None, None], T, delta_T @ T)
+            y = torch.where(done, y, y0)
+            done = done | conv
+    _count_solve(trips, batch)
     return LsqResult(transform=T, converged=done, final_cost=y)
 
 
@@ -113,41 +129,46 @@ def lm_solve(
     lam = torch.full(batch, -1.0, dtype=dt, device=dev)
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
     y = torch.full(batch, float("inf"), dtype=dt, device=dev)
+    trips = 0
     for _ in range(max_iterations):
         if bool(done.all()):
             break
-        H, g, y0, aux = linearize(T)
-        # Lazy lambda init (lsq_registration_impl.hpp:128-130).
-        diag_max = H.diagonal(dim1=-2, dim2=-1).abs().amax(-1)
-        lam = torch.where(lam < 0.0, init_lambda_factor * diag_max, lam)
+        with profiling.span("refine.lm.trip"):
+            trips += 1
+            profiling.count_mask("lm.live", done, False)
+            H, g, y0, aux = linearize(T)
+            # Lazy lambda init (lsq_registration_impl.hpp:128-130).
+            diag_max = H.diagonal(dim1=-2, dim2=-1).abs().amax(-1)
+            lam = torch.where(lam < 0.0, init_lambda_factor * diag_max, lam)
 
-        lam_k = lam[..., None] * ladder  # (B, L)
-        Hk = H[..., None, :, :] + lam_k[..., None, None] * eye6
-        g_k = g[..., None, :].expand(Hk.shape[:-1])
-        d_k = chol_solve6(Hk, -g_k)  # (B, L, 6)
-        delta_k = se3.se3_exp(d_k)  # (B, L, 4, 4)
-        T_k = delta_k @ T[..., None, :, :]
-        y_k = error(T_k, aux)  # (B, L)
-        rho_k = (y0[..., None] - y_k) / (d_k * (lam_k[..., None] * d_k - g_k)).sum(-1)  # :142
-        accept_k = rho_k >= 0.0
-        stepconv_k = _is_converged(delta_k, rot_eps, trans_eps)
-        # Sequential events: at ladder step k, accept (rho >= 0, :156-161)
-        # or stop on a converged rejection (:147-151); first event wins.
-        event_k = accept_k | stepconv_k
-        first = event_k.to(torch.uint8).argmax(-1)  # first True
-        has_event = event_k.any(-1)
-        acc_first = _take(accept_k, first)
-        acc = has_event & acc_first
-        conv_stop = has_event & ~acc_first
-        rho_f = _take(rho_k, first)
-        lam_acc = _take(lam_k, first) * torch.maximum(third, 1.0 - (2.0 * rho_f - 1.0) ** 3)  # :159
-        conv = (acc & _take(stepconv_k, first)) | conv_stop
-        T_new = torch.where(acc[..., None, None], _take(T_k, first), T)
-        lam_new = torch.where(acc, lam_acc, lam)
-        # Inner exhaustion without an event ends the problem unconverged
-        # (computeTransformation :70-73).
-        T = torch.where(done[..., None, None], T, T_new)
-        lam = torch.where(done, lam, lam_new)
-        y = torch.where(done, y, y0)
-        done = done | conv | ~has_event | conv_stop
+            lam_k = lam[..., None] * ladder  # (B, L)
+            Hk = H[..., None, :, :] + lam_k[..., None, None] * eye6
+            g_k = g[..., None, :].expand(Hk.shape[:-1])
+            d_k = chol_solve6(Hk, -g_k)  # (B, L, 6)
+            delta_k = se3.se3_exp(d_k)  # (B, L, 4, 4)
+            T_k = delta_k @ T[..., None, :, :]
+            y_k = error(T_k, aux)  # (B, L)
+            rho_k = (y0[..., None] - y_k) / (d_k * (lam_k[..., None] * d_k - g_k)).sum(-1)  # :142
+            accept_k = rho_k >= 0.0
+            stepconv_k = _is_converged(delta_k, rot_eps, trans_eps)
+            # Sequential events: at ladder step k, accept (rho >= 0, :156-161)
+            # or stop on a converged rejection (:147-151); first event wins.
+            event_k = accept_k | stepconv_k
+            first = event_k.to(torch.uint8).argmax(-1)  # first True
+            has_event = event_k.any(-1)
+            acc_first = _take(accept_k, first)
+            acc = has_event & acc_first
+            conv_stop = has_event & ~acc_first
+            rho_f = _take(rho_k, first)
+            lam_acc = _take(lam_k, first) * torch.maximum(third, 1.0 - (2.0 * rho_f - 1.0) ** 3)  # :159
+            conv = (acc & _take(stepconv_k, first)) | conv_stop
+            T_new = torch.where(acc[..., None, None], _take(T_k, first), T)
+            lam_new = torch.where(acc, lam_acc, lam)
+            # Inner exhaustion without an event ends the problem unconverged
+            # (computeTransformation :70-73).
+            T = torch.where(done[..., None, None], T, T_new)
+            lam = torch.where(done, lam, lam_new)
+            y = torch.where(done, y, y0)
+            done = done | conv | ~has_event | conv_stop
+    _count_solve(trips, batch)
     return LsqResult(transform=T, converged=done, final_cost=y)

@@ -42,9 +42,8 @@ import torch
 from sgtd_tpu_torch.config import GicpConfig
 from sgtd_tpu_torch.geom import se3
 from sgtd_tpu_torch.ops.linalg3 import inv3x3
-from sgtd_tpu_torch.refine.gicp import _bsum_mm, _moved, point_covariances
-from sgtd_tpu_torch.refine.lsq import gn_solve, lm_solve
-from sgtd_tpu_torch.utils import batch_take, disable_tf32, sqrt_rn
+from sgtd_tpu_torch.refine.gicp import _bsum_mm, _moved, _solve, point_covariances
+from sgtd_tpu_torch.utils import batch_take, disable_tf32, profiling, sqrt_rn
 
 I32_MAX = 2**31 - 1
 # Voxel coordinate packing: 10 bits per axis, offset 512 (+-512 voxels).
@@ -289,49 +288,36 @@ def vgicp_align(
         return (w[:, None] * (e * Me).sum(-1)).sum((-2, -1))
 
     T0 = init_transform.reshape(-1, 4, 4).to(src.dtype)
-    if cfg.optimizer == "lm":
-        res = lm_solve(
-            linearize, error, T0,
-            max_iterations=cfg.max_iterations,
-            lm_inner=cfg.lm_max_inner,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            init_lambda_factor=cfg.lm_init_lambda_factor,
-        )
-    else:
-        res = gn_solve(
-            linearize, T0,
-            max_iterations=cfg.max_iterations,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            damping=cfg.gn_damping,
-        )
+    res = _solve(linearize, error, T0, cfg)
 
     T = res.transform
-    moved = _moved(src, T)
-    slot1, found1 = _correspondences(vm, moved, src_mask, _OFFSETS["direct1"])
-    d = moved - batch_take(vm.mean, slot1[..., 0])
-    sqd = (d * d).sum(-1)
-    ok = found1[..., 0]
-    zero = torch.zeros((), dtype=sqd.dtype, device=sqd.device)
-    n_ok = torch.clamp(ok.to(torch.float32).sum(-1), min=1.0)
-    fitness = torch.where(ok, sqd, zero).sum(-1) / n_ok
-    # Gated measures against all valid source points: a point with no
-    # DIRECT1 voxel is a non-overlap point, like a far NN in plain GICP.
-    r2 = float(torch.tensor(cfg.fitness_radius, dtype=torch.float32) ** 2)
-    inl = ok & (sqd < r2)
-    n_inl = inl.to(torch.float32).sum(-1)
-    n_valid = torch.clamp(src_mask.to(torch.float32).sum(-1), min=1.0)
+    with profiling.span("refine.fitness"):
+        moved = _moved(src, T)
+        slot1, found1 = _correspondences(vm, moved, src_mask, _OFFSETS["direct1"])
+        d = moved - batch_take(vm.mean, slot1[..., 0])
+        sqd = (d * d).sum(-1)
+        ok = found1[..., 0]
+        zero = torch.zeros((), dtype=sqd.dtype, device=sqd.device)
+        n_ok = torch.clamp(ok.to(torch.float32).sum(-1), min=1.0)
+        fitness = torch.where(ok, sqd, zero).sum(-1) / n_ok
+        # Gated measures against all valid source points: a point with no
+        # DIRECT1 voxel is a non-overlap point, like a far NN in plain GICP.
+        r2 = float(torch.tensor(cfg.fitness_radius, dtype=torch.float32) ** 2)
+        inl = ok & (sqd < r2)
+        n_inl = inl.to(torch.float32).sum(-1)
+        n_valid = torch.clamp(src_mask.to(torch.float32).sum(-1), min=1.0)
+        fitness_gated = torch.where(inl, sqd, zero).sum(-1) / torch.clamp(n_inl, min=1.0)
     return VgicpResult(
         transform=T.reshape(batch + (4, 4)),
         fitness=fitness.reshape(batch),
         num_inliers=n_inl.to(torch.int32).reshape(batch),
         converged=res.converged.reshape(batch),
-        fitness_gated=(torch.where(inl, sqd, zero).sum(-1) / torch.clamp(n_inl, min=1.0)).reshape(batch),
+        fitness_gated=fitness_gated.reshape(batch),
         inlier_frac=(n_inl / n_valid).reshape(batch),
     )
 
 
+@profiling.traced("refine.rerank")
 def vgicp_rerank(
     src: torch.Tensor,
     src_mask: torch.Tensor,
