@@ -85,12 +85,28 @@ Phases (any failure ends the run with a non-zero exit):
    reads its output; B3 at 800, 400 and 50 candidates; B4 and B7 at 64,
    160 and 4 problems; B8 on random rows and on runs of consecutive
    rows), equal outputs required (B2: on valid slots). ``--sass FILE``
-   writes the built library's SASS there (``cuobjdump -sass``);
-   ``--kernels-only`` stops here.
+   writes the built library's SASS there (``cuobjdump -sass``).
+   Then K1 ``triangle_hypotheses`` and K2 ``verify_epilogue``
+   (``check_kabsch_kernels``; csrc/kabsch.cu, verification's Kabsch
+   solves, which replace no TPU kernel) against their plain versions at
+   the three cells' shapes (16 x 50, 8 x 50 and 50 candidates of 512
+   pairs, 50 hypotheses): K1 on every slot, masked ones included, rotation
+   entries within ``K1_ROT_TOL`` and translations within ``K1_T_TOL``;
+   B3's votes over K1's hypotheses equal to B3's over the plain version's
+   but by borderline pairs; K2 on the same votes and hypotheses, scores and
+   inlier masks equal but on pairs within ``KABSCH_NEAR_M`` of the
+   threshold (counted), the same polish choice, sampled poses equal and
+   polished ones within ``K2_ROT_TOL`` and ``K2_T_TOL``; each launched
+   twice for the same bits. Also at the edges (``kabsch_edges``:
+   valid-pair counts 0, 1, 2, 49-51 and more, collinear triangles and
+   coincident points, candidates with 0 and 1 inlier pairs, all-invalid
+   candidates, P 513, 130 and 3, H 1). Both bodies timed by CUDA events
+   behind a device spin beside their bounds (``portbench.work.bound_s``)
+   and the wrappers' host cost. ``--kernels-only`` stops here.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
-   zero TRUNC_SCAN, success rate >= 0.95, B1-B3 launched. One chunk
+   zero TRUNC_SCAN, success rate >= 0.95, B1-B3, K1 and K2 launched. One chunk
    re-runs with the plain versions and must give the same candidates and
    votes. B8, which no module calls, gathers the packed2 words of that
    chunk's kept hits; their frames must equal the probe stage's. Prints
@@ -100,8 +116,10 @@ Phases (any failure ends the run with a non-zero exit):
    voxel-downsampled to at most 1,024 points, then ``localize_refined``
    with the GICP rerank of the top 4 candidates, chunks of 16. Gates:
    zero TRUNC_SCAN, success rate >= 0.95 on the refined poses, finite
-   poses, every kernel launched. Prints what B1 meets on every chunk's
-   real inputs and its body on them. One chunk re-runs with B4/B5 patched to
+   poses, every kernel launched (B1-B5, K1, K2). Prints what B1 meets on
+   every chunk's real inputs and its body on them. K1 and K2 against
+   their plain versions on every chunk's real candidates
+   (``check_kabsch_on_path``, phase 2's gates). One chunk re-runs with B4/B5 patched to
    their plain versions and must give the same pick, refined and found,
    with poses within 5e-3 m and 1e-3 rad. Prints what B4's deferred argmin
    meets on that chunk's real clouds (``rescan_share``), what B3's tile
@@ -493,7 +511,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> list:
-    """Every kernel's launches since the last ``reset_counts``, B1-B8."""
+    """Every kernel's launches since the last ``reset_counts``, B1-B8, K1, K2."""
     from sgtd_tpu_torch.ops import launch_counts
 
     return launch_counts()
@@ -1190,6 +1208,332 @@ def check_votes_edges(dev, card: str) -> dict:
         f"{cycles:.0f} cycles a trip at the SM clock under the load ({clock}) [{card}]")
     shapes["every pair an inlier"] = {"ms": ms, "cycles_a_trip": cycles}
     return shapes
+
+
+# K1 and K2 (csrc/kabsch.cu): float32 operations of one solve, each
+# product, sum, quotient and root one, a fused multiply-add two. K1 a
+# hypothesis: the triangle's centroids, scale and cross-covariance 165, the
+# 4x4 solve 586 (the quartic's coefficients 110, 12 Newton steps 168, the
+# 16 cofactors 256, the quaternion and rotation 52), the translation 18.
+# K2: the inlier test 81 a valid pair (3 vertices x (3 x (a rotation 5, a
+# translation, a difference, a square) + 2 sums + a root)), 18 coordinate
+# sums an inlier pair, 108 an inlier pair of a polished candidate (its
+# second pass: 6 differences, 2 squared norms and 9 products a vertex),
+# and 640 a polished candidate (scale, cross-covariance, solve, translation).
+K1_FLOPS, K2_PAIR_FLOPS, K2_INLIER_FLOPS, K2_POLISH_PAIR_FLOPS, K2_POLISH_FLOPS = 769, 81, 18, 108, 640
+# Gaps allowed between a kernel and its plain version on the card: K1 a
+# rotation entry and a translation (m) on every slot, K2 the polished
+# poses where the inlier masks agree; a pair is borderline where a
+# vertex's float64 distance under the best hypothesis lies within
+# KABSCH_NEAR_M of the threshold (its float32 distance may round to either
+# side in another order of the same sums).
+K1_ROT_TOL, K1_T_TOL, K2_ROT_TOL, K2_T_TOL, KABSCH_NEAR_M = 2e-6, 1e-5, 1e-5, 1e-4, 1e-5
+
+
+def kabsch_problem(rng, n: int, h: int, p: int, mask: str, dev):
+    """The inputs of ``verify_pairs`` for ``n`` candidates of ``p`` pairs
+    (``votes_problem``'s vertices: a quarter of each candidate's pairs
+    planted near one rigid transform, the rest random) and every
+    candidate valid: (vq, vdb, pair_valid, cand_valid)."""
+    _, _, vq, vdb, pair_valid = votes_problem(rng, n, h, p, mask, dev)
+    return vq, vdb, pair_valid, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def check_k1(name: str, vq, vdb, pair_valid, h: int) -> dict:
+    """K1 against its plain version on the card, on every slot (the masked
+    ones too): rotation entries within K1_ROT_TOL, translations within
+    K1_T_TOL, and the same bits twice. Returns the gaps, the slots beyond
+    them, and both hypothesis sets."""
+    from sgtd_tpu_torch.ops import kabsch as kabsch_ops
+
+    got = kabsch_ops.triangle_hypotheses(vq, vdb, pair_valid, h)
+    want = kabsch_ops.triangle_hypotheses_plain(vq, vdb, pair_valid, h)
+    again = kabsch_ops.triangle_hypotheses(vq, vdb, pair_valid, h)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"K1 triangle_hypotheses [{name}]: two launches on the same input differ in their bits")
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        fail(f"K1 triangle_hypotheses [{name}]: non-finite output")
+    dr = (got[0] - want[0]).abs().amax((-2, -1))
+    dt = (got[1] - want[1]).abs().amax(-1)
+    far = (dr > K1_ROT_TOL) | (dt > K1_T_TOL)
+    out = {"rot": float(dr.max()) if dr.numel() else 0.0, "t": float(dt.max()) if dt.numel() else 0.0,
+           "equal_share": float(((dr == 0) & (dt == 0)).double().mean()) if dr.numel() else 1.0,
+           "beyond": int(far.sum()), "slots": dr.numel(), "got": got, "want": want}
+    line = (f"K1 triangle_hypotheses [{name}] {tuple(vq.shape[:2])} x {h}: every slot against the plain version: "
+            f"rotation entries within {out['rot']:.3e}, translations within {out['t']:.3e} m, "
+            f"{out['equal_share']:.4f} of the slots bit-equal, same bits twice; {out['beyond']} of {out['slots']} "
+            f"slots beyond ({K1_ROT_TOL:g}, {K1_T_TOL:g})")
+    log("   " + line)
+    if out["beyond"]:
+        fail(line)
+    return out
+
+
+def k2_borderline(rot_b, t_b, vq, vdb, pair_valid, thr: float) -> torch.Tensor:
+    """(N, P) bool: valid pairs with a vertex whose float64 distance under
+    the given pose lies within KABSCH_NEAR_M of ``thr``."""
+    moved = torch.einsum("nij,npkj->npki", rot_b.double(), vq.double()) + t_b.double()[:, None, None]
+    dist = (moved - vdb.double()).norm(dim=-1)
+    return ((dist - thr).abs() < KABSCH_NEAR_M).any(-1) & pair_valid
+
+
+def check_k2(name: str, votes, rot_h, t_h, vq, vdb, pair_valid, cand_valid, thr: float, min_votes: int,
+             polished_min: int = 0) -> dict:
+    """K2 against its plain version on the card, on the same votes and
+    hypotheses: scores and inlier masks equal but for borderline pairs
+    (``k2_borderline``), the same polish choice, the sampled poses equal,
+    the polished poses within (K2_ROT_TOL, K2_T_TOL) where the inlier
+    masks agree, the same bits twice. Returns what it compared."""
+    from sgtd_tpu_torch.ops import kabsch as kabsch_ops
+
+    args = (votes, rot_h, t_h, vq, vdb, pair_valid, cand_valid, thr, min_votes)
+    got = kabsch_ops.verify_epilogue(*args)
+    want = kabsch_ops.verify_epilogue_plain(*args)
+    again = kabsch_ops.verify_epilogue(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"K2 verify_epilogue [{name}]: two launches on the same input differ in their bits")
+    score, rot, trans, inl, pol = got
+    w_score, w_rot, w_trans, w_inl, w_pol = want
+    n = votes.shape[0]
+    # The plain version's pick, for the borderline pairs of its pose.
+    use_size = pair_valid.sum(-1) // (pair_valid.sum(-1) // votes.shape[1] + 1)
+    masked = torch.where(torch.arange(votes.shape[1], device=votes.device) < use_size[:, None], votes, -1)
+    best = masked.argmax(-1)
+    rows = torch.arange(n, device=votes.device)
+    near = k2_borderline(rot_h[rows, best], t_h[rows, best], vq, vdb, pair_valid, thr)
+    inl_off = inl != w_inl
+    n_off, n_near = int(inl_off.sum()), int(near.sum())
+    if bool((inl_off & ~near).any()):
+        fail(f"K2 verify_epilogue [{name}]: inlier masks differ on {int((inl_off & ~near).sum())} pairs that are "
+             f"not borderline")
+    same = ~inl_off.any(-1)
+    if not torch.equal(score[same], w_score[same]) or not torch.equal(pol[same], w_pol[same]):
+        fail(f"K2 verify_epilogue [{name}]: scores or polish choices differ where the inlier masks agree")
+    fb = same & ~pol
+    if not (torch.equal(rot[fb], w_rot[fb]) and torch.equal(trans[fb], w_trans[fb])):
+        fail(f"K2 verify_epilogue [{name}]: the sampled poses differ")
+    both = same & pol
+    dr = float((rot[both] - w_rot[both]).abs().max()) if bool(both.any()) else 0.0
+    dt = float((trans[both] - w_trans[both]).abs().max()) if bool(both.any()) else 0.0
+    line = (f"K2 verify_epilogue [{name}] {n} cand x {votes.shape[1]} hyp x {pair_valid.shape[1]} pairs: scores and "
+            f"inlier masks equal but on {n_off} pairs ({n_near} borderline, within {KABSCH_NEAR_M:g} m of thr), "
+            f"{int(pol.sum())} polished and {int((~pol & (score >= 0)).sum())} accepted on the sampled pose, "
+            f"{int((score < 0).sum())} rejected; polished poses within {dr:.3e} (rotation) and {dt:.3e} m; "
+            f"same bits twice")
+    log("   " + line)
+    if dr > K2_ROT_TOL or dt > K2_T_TOL:
+        fail(line)
+    if int(pol.sum()) < polished_min:
+        fail(f"K2 verify_epilogue [{name}]: {int(pol.sum())} polished candidates, {polished_min} expected")
+    return {"rot": dr, "t": dt, "got": got, "want": want}
+
+
+def check_votes_over_k1(name: str, k1: dict, vq, vdb, pair_valid, thr: float):
+    """B3's votes over K1's hypotheses against B3's votes over the plain
+    version's: equal but by pairs borderline under either set (float64
+    d^2 within 1e-3 of thr^2, ``check_votes``' rule). Returns both votes."""
+    from sgtd_tpu_torch.ops import verify
+
+    got = verify.hypothesis_votes(*k1["got"], vq, vdb, pair_valid, thr)
+    want = verify.hypothesis_votes(*k1["want"], vq, vdb, pair_valid, thr)
+    near = torch.zeros_like(got)
+    for hyp in (k1["got"], k1["want"]):
+        d2 = votes_d2((*hyp, vq, vdb, pair_valid))
+        near = torch.maximum(near, (((d2 - thr * thr).abs() < 1e-3).any(-1) & pair_valid[:, None]).sum(-1,
+                             dtype=torch.int32))
+        del d2
+    diff = (got - want).abs()
+    if bool((diff > near).any()):
+        fail(f"B3 over K1's hypotheses [{name}]: votes differ beyond the borderline pairs")
+    log(f"   B3 over K1's hypotheses [{name}]: votes equal to B3 over the plain version's on "
+        f"{int((diff == 0).sum())} of {diff.numel()} (candidate, hypothesis) counts, the rest within their "
+        f"{int(near[diff > 0].sum())} borderline pairs")
+    return got, want
+
+
+def kabsch_edges(rng, dev, min_votes: int):
+    """The degenerate and ragged inputs of K1 and K2, each (name, vq, vdb,
+    pair_valid, cand_valid, h, min_votes): valid-pair counts 0, 1, 2 and
+    49-51 around H and more; collinear triangles; coincident points (a DB
+    triangle of zeros, and three query vertices on one point); candidates
+    with 0 and with 1 inlier pair, accepted (min_votes 0) so that they take
+    the sampled pose; all-invalid candidates; P 513, 130 and 3, no multiple
+    of K2's pairs a thread; H 1."""
+    h = 50
+    vq, vdb, pv, cv = kabsch_problem(rng, 12, h, 512, "prefix", dev)
+    counts = torch.tensor([0, 1, 2, 49, 50, 51, 99, 100, 101, 150, 511, 512], device=dev)
+    every = torch.ones_like(pv)
+    edges = [("valid pairs 0, 1, 2, 49-51, 99-101, 150, 511, 512", vq, vdb,
+              torch.arange(512, device=dev)[None] < counts[:, None], cv, h, min_votes)]
+    # Collinear query and DB triangles in every pair the hypotheses sample.
+    vq2, vdb2 = vq.clone(), vdb.clone()
+    for x in (vq2, vdb2):
+        x[:, :, 1] = x[:, :, 0] + 0.25 * (x[:, :, 2] - x[:, :, 0])
+    edges.append(("collinear triangles", vq2, vdb2, every, cv, h, min_votes))
+    # A DB triangle of zeros (a padding row) in every other pair: H = 0 and
+    # the identity. Three query vertices on one point: their centred
+    # vertices lie a rounding from 0, so the rotation is rounding's (as a
+    # collinear triangle's about its line).
+    vdb3 = vdb.clone()
+    vdb3[:, 1::2] = 0.0
+    edges.append(("coincident points at 0 in the DB triangle", vq, vdb3, every, cv, h, min_votes))
+    vq3 = vq.clone()
+    vq3[:, :, 1:] = vq3[:, :, :1]
+    edges.append(("coincident points at one query vertex", vq3, vdb, every, cv, h, min_votes))
+    # DB triangles three times their query triangles: no rigid motion maps
+    # any pair's vertices within the threshold. Then pair 0 an exact copy:
+    # one inlier pair, under hypothesis 0.
+    far = 3.0 * vq + 50.0
+    edges.append(("no inlier", vq, far, every, cv, h, 0))
+    one = far.clone()
+    one[:, 0] = vq[:, 0]
+    edges.append(("one inlier pair", vq, one, every, cv, h, 0))
+    cv6, pv6 = cv.clone(), pv.clone()
+    cv6[::3] = False
+    pv6[::3] = False
+    edges.append(("all-invalid candidates", vq, vdb, pv6, cv6, h, min_votes))
+    for p in (513, 130, 3):
+        edges.append((f"P {p}", *kabsch_problem(rng, 20, h, p, "prefix", dev), h, min_votes))
+    edges.append(("H 1", *kabsch_problem(rng, 20, 1, 512, "prefix", dev), 1, min_votes))
+    return edges
+
+
+def kabsch_bytes_flops(votes, vq, pair_valid, polished, inliers, h: int) -> dict:
+    """What K1 and K2 must move and compute on these inputs (each byte read
+    once and written once): K1 the mask, the sampled pairs' 72 bytes, the
+    hypotheses' 48; K2 the votes, the mask, a candidate's flag and best
+    hypothesis, its valid pairs' vertices, the inlier mask, the score,
+    pose and polish flag."""
+    n, p = pair_valid.shape
+    valid = int(pair_valid.sum())
+    n_inl = int(inliers.sum())
+    pol_inl = int((inliers & polished[:, None]).sum())
+    return {
+        "k1": (n * p + 120 * n * h, K1_FLOPS * n * h),
+        "k2": (4 * n * h + n * p + n + 48 * n + 72 * valid + n * p + 4 * n + 48 * n + n,
+               K2_PAIR_FLOPS * valid + K2_INLIER_FLOPS * n_inl + K2_POLISH_PAIR_FLOPS * pol_inl
+               + K2_POLISH_FLOPS * int(polished.sum())),
+    }
+
+
+def kabsch_body_ms(dev, votes, rot_h, t_h, vq, vdb, pair_valid, cand_valid, thr: float, min_votes: int):
+    """K1's and K2's kernel bodies by CUDA events behind a device spin, on
+    inputs and outputs made beforehand."""
+    n, h = votes.shape
+    p = pair_valid.shape[1]
+    r, t = torch.empty_like(rot_h), torch.empty_like(t_h)
+    k1 = body_ms("sgtd_triangle_hypotheses", dev, vq.data_ptr(), vdb.data_ptr(), pair_valid.data_ptr(), r.data_ptr(),
+                 t.data_ptr(), n, h, p)
+    score, rot, trans = vq.new_empty((n,)), vq.new_empty((n, 3, 3)), vq.new_empty((n, 3))
+    inl, pol = pair_valid.new_empty((n, p)), pair_valid.new_empty((n,))
+    k2 = body_ms("sgtd_verify_epilogue", dev, *(a.data_ptr() for a in (votes, rot_h, t_h, vq, vdb, pair_valid,
+                                                                     cand_valid)),
+                 score.data_ptr(), rot.data_ptr(), trans.data_ptr(), inl.data_ptr(), pol.data_ptr(), n, h, p,
+                 float(np.float32(thr)), min_votes)
+    return k1, k2
+
+
+def check_kabsch_edge(name: str, vq, vdb, pair_valid, cand_valid, h: int, min_votes: int, thr: float) -> None:
+    """K1 and K2 on one of ``kabsch_edges``: K1 against its plain version,
+    B3 over its hypotheses, K2 on the same votes (phase 2's gates: K1 takes
+    the plain version's orders, so it matches even where rounding decides
+    the rotation, as on a collinear triangle), and what the edge asks of
+    the answers."""
+    k1 = check_k1(name, vq, vdb, pair_valid, h)
+    votes, _ = check_votes_over_k1(name, k1, vq, vdb, pair_valid, thr)
+    score, _, _, inl, pol = check_k2(name, votes, *k1["got"], vq, vdb, pair_valid, cand_valid, thr, min_votes)["got"]
+    wants = {
+        "no inlier": bool((score == 0).all()) and not bool(inl.any() | pol.any()),
+        "one inlier pair": bool((score == 1).all()) and bool(inl[:, 0].all()) and not bool(inl[:, 1:].any())
+        and not bool(pol.any()),
+        "all-invalid candidates": bool((score[::3] == -1).all()) and not bool(inl[::3].any()),
+    }
+    if not wants.get(name, True):
+        fail(f"K2 [{name}]: scores {score.tolist()}, polished {pol.tolist()}")
+
+
+def check_kabsch_kernels(dev, card: str) -> list:
+    """Phase 2, K1 and K2: each against its plain version at the three
+    cells' shapes (16 x 50, 8 x 50 and 50 candidates of 512 pairs, 50
+    hypotheses), K1 on every slot, B3 over K1's hypotheses against B3 over
+    the plain version's, K2 on the same votes and hypotheses; then at the
+    edges (``kabsch_edges``). Times both bodies by CUDA events behind a
+    device spin beside the plain versions' synchronized calls and each
+    kernel's bound (``portbench.work.bound_s``: bytes over 3.35 TB/s,
+    float32 operations over 67 TFLOP/s), and the wrappers' host cost.
+    Returns the two kernel records."""
+    from portbench.work import bound_s
+    from sgtd_tpu_torch.config import SearchConfig
+    from sgtd_tpu_torch.ops import kabsch as kabsch_ops
+
+    search = SearchConfig()
+    thr, min_votes, h = search.verify_dis_threshold, search.min_hypothesis_votes, search.max_hypotheses
+    rng = np.random.default_rng(SEED + 16)
+    k1_shapes, k2_shapes = {}, {}
+    for n in (CHUNK * 50, SCALE_CHUNK * 50, 50):
+        vq, vdb, pv, cv = kabsch_problem(rng, n, h, 512, "prefix", dev)
+        name = f"N {n}"
+        k1 = check_k1(name, vq, vdb, pv, h)
+        votes, _ = check_votes_over_k1(name, k1, vq, vdb, pv, thr)
+        k2 = check_k2(name, votes, *k1["got"], vq, vdb, pv, cv, thr, min_votes, polished_min=1)
+        _, _, _, inl, pol = k2["want"]
+        k1_ms, k2_ms = kabsch_body_ms(dev, votes, *k1["got"], vq, vdb, pv, cv, thr, min_votes)
+        w1, p1 = median_times(lambda: kabsch_ops.triangle_hypotheses(vq, vdb, pv, h),
+                              lambda: kabsch_ops.triangle_hypotheses_plain(vq, vdb, pv, h), runs=10)
+        args = (votes, *k1["got"], vq, vdb, pv, cv, thr, min_votes)
+        w2, p2 = median_times(lambda: kabsch_ops.verify_epilogue(*args),
+                              lambda: kabsch_ops.verify_epilogue_plain(*args), runs=10)
+        work = kabsch_bytes_flops(votes, vq, pv, pol, inl, h)
+        for shapes, key, ms, wrapper_ms, plain_ms, err in ((k1_shapes, "k1", k1_ms, w1, p1, max(k1["rot"], k1["t"])),
+                                                           (k2_shapes, "k2", k2_ms, w2, p2, max(k2["rot"], k2["t"]))):
+            nbytes, flops = work[key]
+            bound = bound_s(nbytes, flops) * 1e3
+            shapes[name] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S else "operations",
+                            "max_abs_err": err, "bytes": nbytes, "flops": flops}
+            log(f"   {key.upper()} [{name}]: kernel body {ms:.4f} ms (CUDA events behind a device spin), wrapper "
+                f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of synchronized calls); bound {bound:.5f} ms "
+                f"by {shapes[name]['bound_by']} ({nbytes} bytes, {flops} float32 operations: "
+                f"{bound / ms:.3f} of the body) [{card}]")
+        del vq, vdb, pv, cv, k1, k2, votes, args
+    for name, vq, vdb, pv, cv, hh, mv in kabsch_edges(rng, dev, min_votes):
+        check_kabsch_edge(name, vq, vdb, pv, cv, hh, mv, thr)
+
+    # Host cost of a call of each wrapper on tiny inputs.
+    vq, vdb, pv, cv = kabsch_problem(rng, 1, 2, 4, "all", dev)
+    rot_h, t_h = kabsch_ops.triangle_hypotheses(vq, vdb, pv, 2)
+    votes = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    host = {"triangle_hypotheses": host_us(lambda: kabsch_ops.triangle_hypotheses(vq, vdb, pv, 2)),
+            "verify_epilogue": host_us(lambda: kabsch_ops.verify_epilogue(votes, rot_h, t_h, vq, vdb, pv, cv, thr, 1))}
+    log(f"   host cost of a call, us (as host_costs): K1 {host['triangle_hypotheses']:.2f}, K2 "
+        f"{host['verify_epilogue']:.2f} [{card}]")
+    records = []
+    for name, shapes in (("triangle_hypotheses", k1_shapes), ("verify_epilogue", k2_shapes)):
+        first = shapes[f"N {CHUNK * 50}"]
+        rec = kernel_record(name, "kabsch.cu", "none: plain jnp, sgtd_tpu/ops/linalg3.py", first["max_abs_err"],
+                            first["ms"], first["plain_ms"], first["bytes"], first["flops"],
+                            wrapper_ms=first["wrapper_ms"])
+        rec["shapes"], rec["host_us"] = shapes, host[name]
+        log_bound(rec)
+        records.append(rec)
+    return records
+
+
+def check_kabsch_on_path(calls: dict, thr: float, min_votes: int) -> None:
+    """K1 and K2 against their plain versions on a path's real candidates
+    (``calls``: the recorded calls of each wrapper, by chunk): K1 on every
+    slot, B3 over both hypothesis sets, K2 on the plain version's own votes
+    and hypotheses (what the plain path would have verified)."""
+    for i, (c1, c2) in enumerate(zip(calls["k1"], calls["k2"])):
+        vq, vdb, pv, h = c1.args
+        n = pv[..., 0].numel()
+        flat = lambda x, *tail: x.reshape((n,) + tail)
+        vq, vdb, pv = flat(vq, pv.shape[-1], 3, 3), flat(vdb, pv.shape[-1], 3, 3), flat(pv, pv.shape[-1])
+        cv = c2.args[6].reshape(n)
+        name = f"chunk {i}'s candidates"
+        k1 = check_k1(name, vq, vdb, pv, h)
+        _, votes_plain = check_votes_over_k1(name, k1, vq, vdb, pv, thr)
+        check_k2(name, votes_plain, *k1["want"], vq, vdb, pv, cv, thr, min_votes, polished_min=1)
 
 
 def check_kernels(dev, card: str):
@@ -1911,9 +2255,10 @@ def main_path(dev, card: str):
     results = [localize(db, q, cfg) for q in chunks]
     torch.cuda.synchronize()
     launches = read_counts()[:3]
-    log(f"descriptor-only path kernel launches (B1-B3): {launches}")
-    if min(launches) <= 0:
-        fail(f"a kernel of the path was never launched: {launches}")
+    kabsch_launches = read_counts()[8:10]
+    log(f"descriptor-only path kernel launches (B1-B3): {launches}; K1, K2: {kabsch_launches}")
+    if min(launches + kabsch_launches) <= 0:
+        fail(f"a kernel of the path was never launched: {launches}, K1 and K2 {kabsch_launches}")
 
     found = torch.cat([r.found for r in results]).cpu().numpy()
     poses = torch.cat([r.poses[:, 0] for r in results]).cpu().numpy()
@@ -2073,10 +2418,12 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=())
     ]
     torch.cuda.synchronize()
     launches = read_counts()[:5]
+    kabsch_launches = read_counts()[8:10]
     log(f"refined path kernel launches (B1-B5): {launches} (B5: {map_knn_launches} for the map "
-        f"covariances, {launches[4] - map_knn_launches} for the chunks' query covariances)")
-    if min(launches) <= 0:
-        fail(f"a kernel of the refined path was never launched: {launches}")
+        f"covariances, {launches[4] - map_knn_launches} for the chunks' query covariances); K1, K2: "
+        f"{kabsch_launches}")
+    if min(launches + kabsch_launches) <= 0:
+        fail(f"a kernel of the refined path was never launched: {launches}, K1 and K2 {kabsch_launches}")
 
     pose = torch.cat([r.pose for r in results])
     refined = torch.cat([r.refined for r in results])
@@ -2137,12 +2484,20 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=())
 
     from sgtd_tpu_torch.ops import probe as probe_ops
 
+    from sgtd_tpu_torch.ops import kabsch as kabsch_ops
+
     with mock.patch.object(verify_ops, "hypothesis_votes", wraps=verify_ops.hypothesis_votes) as seen, \
-            mock.patch.object(probe_ops, "frame_votes", wraps=probe_ops.frame_votes) as seen_b1:
+            mock.patch.object(probe_ops, "frame_votes", wraps=probe_ops.frame_votes) as seen_b1, \
+            mock.patch.object(kabsch_ops, "triangle_hypotheses", wraps=kabsch_ops.triangle_hypotheses) as seen_k1, \
+            mock.patch.object(kabsch_ops, "verify_epilogue", wraps=kabsch_ops.verify_epilogue) as seen_k2:
         for q, s in zip(chunks, sl):
             refined_stages(db, q, q_clouds[s], q_masks[s], map_clouds, map_masks, map_covs, cfg, RERANK_K)
     for i, call in enumerate(seen.call_args_list):
         log_votes_call(f"chunk {i}", call, dev, card)
+    log("K1 and K2 on every chunk's real candidates, against their plain versions:")
+    check_kabsch_on_path({"k1": seen_k1.call_args_list, "k2": seen_k2.call_args_list},
+                         cfg.search.verify_dis_threshold, cfg.search.min_hypothesis_votes)
+    del seen_k1, seen_k2
     for i, call in enumerate(seen_b1.call_args_list):
         hit, frame, f_pad = call.args
         ms, bound = frame_votes_body_ms(hit, frame, f_pad), frame_votes_nbytes(hit, f_pad) / HBM_BYTES_S * 1e3
@@ -2170,7 +2525,7 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=())
     log(f"refined steady state: scans/s per rep {scans_s} (median {statistics.median(scans_s):.2f}, "
         f"chunk {CHUNK}, rerank_k {RERANK_K}, synchronized per chunk) [{card}]")
     inputs = (db, chunks, sl, q_clouds, q_masks, map_clouds, map_masks, map_covs, cfg)
-    return launches, map_knn_launches, inputs, results, gts, split, statistics.median(scans_s)
+    return launches + kabsch_launches, map_knn_launches, inputs, results, gts, split, statistics.median(scans_s)
 
 
 def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scans_s) -> int:
@@ -2195,7 +2550,7 @@ def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scan
         results = [run(q, s) for q, s in zip(chunks, sl)]
         torch.cuda.synchronize()
         counts = read_counts()
-        log(f"fused refined path kernel launches (B1-B8): {counts}")
+        log(f"fused refined path kernel launches (B1-B8, K1, K2): {counts}")
         n_chunks, trips = len(chunks), cfg.gicp.max_iterations
         if min(counts[:3]) <= 0 or counts[4] <= 0:
             fail(f"a kernel of the fused refined path was never launched: {counts}")
@@ -2385,7 +2740,7 @@ def large_map(dev, card: str, num_map: int):
     res1 = [localize(db, q, cfg) for q in chunks]
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"large map (1) kernel launches (B1-B6): {counts}")
+    log(f"large map (1) kernel launches (B1-B8, K1, K2): {counts}")
     if counts[0] != 0 or counts[5] <= 0 or min(counts[1:3]) <= 0:
         fail(f"large map (1): B2, B3 and B6 must launch and B1 must not: {counts}")
     sr1 = outcome(res1, "(1)")
@@ -2709,7 +3064,7 @@ def cli_on_files(dev, card: str) -> int:
         want = summaries["gicp", "build"]
         if any(out_g[k] != want[k] for k in ACCURACY_KEYS):
             fail(f"in-process evaluate (gicp) {out_g} differs from the CLI's {want}")
-        log(f"in-process evaluate, gicp: equal to the CLI's summary on {ACCURACY_KEYS}; launches (B1-B8) {counts_g}")
+        log(f"in-process evaluate, gicp: equal to the CLI's summary on {ACCURACY_KEYS}; launches (B1-B8, K1, K2) {counts_g}")
         if min(counts_g[:5]) <= 0:
             fail(f"in-process evaluate (gicp): a kernel of the path was never launched: {counts_g}")
 
@@ -2761,7 +3116,7 @@ def cli_on_files(dev, card: str) -> int:
         counts_v = read_counts()
         log(f"in-process evaluate, vgicp: SR {out_v['success_rate']:.4f} (CLI {sr_v:.4f}), "
             f"{1e3 / out_v['mean_time_ms']:.2f} scans/s steady state (chunk {CHUNK}, rerank_k {RERANK_K}, "
-            f"synchronized per chunk), launches (B1-B8) {counts_v} [{card}]")
+            f"synchronized per chunk), launches (B1-B8, K1, K2) {counts_v} [{card}]")
         if min(counts_v[i] for i in (0, 1, 2, 4)) <= 0 or counts_v[3] or counts_v[6]:
             fail(f"in-process evaluate (vgicp): B1-B3 and B5 must launch, B4 and B7 not: {counts_v}")
         if any(out_v[k] != summaries["vgicp", "build"][k] for k in ACCURACY_KEYS):
@@ -2893,7 +3248,7 @@ def hard_world(dev, card: str) -> list:
             outs[name] = runner.evaluate(index, queries, **kw)
             counts = read_counts()
             table(name, outs[name])
-            log(f"hard world {name} kernel launches (B1-B8): {counts}")
+            log(f"hard world {name} kernel launches (B1-B8, K1, K2): {counts}")
             if (counts[6] > 0) != fused or counts[3] <= 0:
                 fail(f"hard world {name}: B7 must launch only when fused, B4 always: {counts}")
             # The frame each query's pose was refined against: the rerank's pick.
@@ -3238,7 +3593,7 @@ def frontend(dev, card: str):
         if trunc or out["success_rate"] < SR_GATE or min(counts[:3]) < 1:
             fail(f"localize on the built graphs: SR {out['success_rate']}, {trunc} TRUNC_SCAN, launches {counts}")
         log(f"localize on the built graphs: SR {out['success_rate']:.4f} (gate {SR_GATE}), R@1 {out['recall_at_1']}, "
-            f"TRUNC_SCAN 0, {out['db_rows']} DB rows, launches (B1-B8) {counts} [{card}]")
+            f"TRUNC_SCAN 0, {out['db_rows']} DB rows, launches (B1-B8, K1, K2) {counts} [{card}]")
 
         # A local map of the first keyframes, in process, timed.
         sub = os.path.join(root, "local")
@@ -3477,7 +3832,7 @@ def backend_path(dev, card: str, bench, large) -> dict:
     counts = read_counts()
     nodes = db.frame_poses.shape[0] + SESSION_SCANS
     log(f"session correction on the bench world ({SESSION_SCANS} scans, {nodes} nodes, dense): {s_sess:.3f} s; "
-        f"kernel launches (B1-B8) {counts} [{card}]")
+        f"kernel launches (B1-B8, K1, K2) {counts} [{card}]")
     check_session("bench world session", res, gt_s, odom_s, REFERENCE_SESSION)
     if min(counts[:3]) <= 0:
         fail(f"bench world session: B1-B3 must launch: {counts}")
@@ -3492,7 +3847,7 @@ def backend_path(dev, card: str, bench, large) -> dict:
     res5, s5 = synced_s(lambda: localize_and_optimize_session(db5, graphs5, odom5, cfg5))
     counts5 = read_counts()
     log(f"session correction on the {db5.frame_poses.shape[0]}-keyframe map ({SESSION_SCANS_5K} scans, {nodes5} "
-        f"nodes, PCG): {s5:.3f} s; kernel launches (B1-B8) {counts5} [{card}]")
+        f"nodes, PCG): {s5:.3f} s; kernel launches (B1-B8, K1, K2) {counts5} [{card}]")
     check_session("large-map session", res5, gt5, odom5)
     if counts5[0] != 0 or counts5[5] <= 0 or min(counts5[1:3]) <= 0:
         fail(f"large-map session: B2, B3 and B6 must launch and B1 must not: {counts5}")
@@ -3570,7 +3925,7 @@ def log_world(name: str, summary: dict, card: str) -> None:
         log(f"   {leg}: {max(secs):.3f} s (slowest rank; fastest {min(secs):.3f}{first}), "
             f"load {max(r['load_s'] for r in ranks):.2f} s, "
             f"collectives {ranks[0]['collective_calls']} calls a rank, {max(coll):.3f} s "
-            f"(share {max(c / s for c, s in zip(coll, secs)):.3f} of the slowest), launches B1-B8 of rank 0 "
+            f"(share {max(c / s for c, s in zip(coll, secs)):.3f} of the slowest), launches B1-B8, K1, K2 of rank 0 "
             f"{ranks[0]['launches']}")
 
 
@@ -3579,7 +3934,7 @@ def multi_device(card: str, bench, bench_run: dict, large, large_run: dict, ba_r
     (``parallel.multihost_check.run_world``), on phase 3's and phase 5's DBs
     and phase 10's BA problem written under build/phase11. World A: NCCL,
     one rank; world B: gloo, 8 ranks (NCCL takes one rank a card, which a
-    2-rank NCCL world shows first). Returns every rank's launches (B1-B8)
+    2-rank NCCL world shows first). Returns every rank's launches (B1-B8, K1, K2)
     on world B's localizer legs."""
     from sgtd_tpu_torch.eval.metrics import success_rate
     from sgtd_tpu_torch.graph.types import SemanticGraph
@@ -3734,6 +4089,8 @@ def main() -> None:
     costs = host_costs(dev)
     for rec in records:
         rec["host_us"] = costs[rec["name"]]
+    log("K1 triangle_hypotheses and K2 verify_epilogue (csrc/kabsch.cu) against their plain versions:")
+    kabsch_records = check_kabsch_kernels(dev, card)
     records[7]["library_host_us"] = costs["index_select"]
     log(f"host cost of a call, us (host clock over {HOST_COST_CALLS} back-to-back calls on tiny inputs, one "
         f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "
@@ -3749,6 +4106,7 @@ def main() -> None:
     bench = ctx[:3]
     bench_run = {"chunks": ctx[4], "gts": [g.pose for g in ctx[3]], "results": bench_results}
     launches, map_knn_launches, *refined = refined_path(dev, card, *ctx, votes_libs=votes_libs)
+    launches, kabsch_launches = launches[:5], launches[5:]
     del ctx
     # Phase 7's oracle (plain Python on the host, about a minute on one of
     # the host's cores) runs in a worker process of its own beside phases
@@ -3772,6 +4130,10 @@ def main() -> None:
     launches += [b6_launches, b7_launches, b8_launches]
     for rec, n in zip(records, launches):
         rec["launches"] = n
+    # K1 and K2: the refined main path's (phase 4).
+    for rec, n in zip(kabsch_records, kabsch_launches):
+        rec["launches"] = n
+    records += kabsch_records
     records[4]["map"]["launches"] = map_knn_launches
     records[4]["vgicp_launches"] = b5_vgicp_launches
     records[4]["fec_launches"] = fec_launches

@@ -42,7 +42,7 @@ from sgtd_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
-SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu", "gicp.cu")
+SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu", "gicp.cu", "kabsch.cu")
 # Headers the sources include: hashed with them, never compiled alone.
 HEADERS = ("nn_common.cuh",)
 NVCC_FLAGS = (
@@ -72,6 +72,11 @@ SIGNATURES = {
     "sgtd_linearize_gicp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # table, idx, out, L, W, stream
     "sgtd_gather_rows": (_P, _P, _P, ctypes.c_longlong, _I, _P),
+    # vq, vdb, pair_valid, rot_h, t_h, N, H, P, stream
+    "sgtd_triangle_hypotheses": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # votes, rot_h, t_h, vq, vdb, pair_valid, cand_valid, score, rot, trans,
+    # inliers, polished, N, H, P, thr, min_votes, stream
+    "sgtd_verify_epilogue": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 

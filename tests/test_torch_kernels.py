@@ -237,5 +237,5 @@ def test_every_wrapper_launches_through_the_one_helper():
             assert text.count("_cuda_getCurrentRawStream(") == 1
             continue
         assert "current_stream" not in text and "library()" not in text and "ctypes" not in text, path.name
-    for name in ("probe", "expand", "verify", "nn", "gicp"):
+    for name in ("probe", "expand", "verify", "nn", "gicp", "kabsch"):
         assert "_build.launch(" in (ops / f"{name}.py").read_text(), name
