@@ -4,6 +4,26 @@ Everything a cell is comes from files found by name: the cell's row in
 ``BENCHMARK.json`` names its configuration (``configs/<config>.json``) and
 its traffic (``traffic/<traffic>.json``); ``cells/<cell>.json`` holds the
 limits of its check; a per-layer metric is read by ``metrics/<name>.py``.
+The configuration's ``kind`` (``graph`` where it names none) is the module
+``kinds/<kind>.py`` that brings the cell's inputs, its service and its
+reference:
+
+- ``check(config, traffic)``: raises ValueError on traffic the kind cannot
+  serve, before set-up;
+- ``make_inputs(seed, config, traffic) -> dict``;
+- ``Service(inputs, config, traffic, device)``, with ``batches`` (a list of
+  (query ids, payload)), ``build(frames=None)``, ``free()``, ``serve(i)``,
+  ``staged(i, spans, profiled=False)``, ``warm()``, ``describe()`` (the
+  tail of the set-up's log line) and ``work(profiled_answers, spans)``
+  (each stage's least seconds in the profiled staged requests);
+- ``reference(inputs, config, traffic, device, control=False) -> dict``;
+- ``numbers(answers, ref) -> dict``: the numbers the cell's limits hold;
+- ``control_answers(ref_ctl)``: the control's answers as ``numbers`` reads
+  the service's, and ``readings(answers, ref) -> dict``: the numbers with
+  what else ``readings.py`` reports to set the limits from.
+
+A kind is looked for under the directory the cell's files come from, then
+among the benchmark's own.
 
 Traffic is a closed loop of one client: requests of ``batch`` query scans
 each, the cell's queries replayed in order, the next sent when the answer
@@ -24,7 +44,6 @@ import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,29 +61,42 @@ def _json(*parts):
         return json.load(f)
 
 
+def _module(base: str, folder: str, name: str, what: str):
+    """``<folder>/<name>.py`` under ``base``, else under the benchmark's
+    own directory, loaded by path."""
+    for d in dict.fromkeys((base, HERE)):
+        path = os.path.join(d, folder, f"{name}.py")
+        if os.path.isfile(path):
+            spec = importlib.util.spec_from_file_location(f"portbench_{folder}_{name}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+    raise ValueError(f"no {what} {name!r}: no {folder}/{name}.py")
+
+
 def load_cell(root: str, name: str, base: str = HERE) -> dict:
     """The cell ``name`` of ``root``'s BENCHMARK.json with its
-    configuration, traffic and limits (files under ``base``) and its
-    per-layer metrics."""
+    configuration, traffic and limits (files under ``base``), its kind's
+    module and its per-layer metrics."""
     bench = _json(root, "BENCHMARK.json")
     cell = next(w for w in bench["workloads"] if w["name"] == name)
     config = _json(base, "configs", f"{cell['config']}.json")
     traffic = _json(base, "traffic", f"{cell['traffic']}.json")
-    if (traffic["entry"] == "localize_refined") != (traffic["rerank_k"] > 0):
-        raise ValueError(f"traffic {cell['traffic']}: localize_refined, and only it, re-ranks candidates")
+    kind = _module(base, "kinds", config.get("kind", "graph"), f"kind of configuration {cell['config']}")
+    try:
+        kind.check(config, traffic)
+    except ValueError as e:
+        raise ValueError(f"traffic {cell['traffic']}: {e}") from e
     limits = _json(base, "cells", f"{name}.json")["limits"]
     reports = {m["name"] for m in bench["end_to_end"] if name in m.get("workloads", [name])}
     per_layer = [m for m in bench["per_layer"]
                  if name in m.get("workloads", [name]) and m["moves"] in reports]
-    return {"cell": cell, "config": config, "traffic": traffic, "limits": limits,
+    return {"cell": cell, "config": config, "traffic": traffic, "limits": limits, "kind": kind,
             "end_to_end": [m for m in bench["end_to_end"] if m["name"] in reports], "per_layer": per_layer}
 
 
 def reader(metric: str):
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", os.path.join(HERE, "metrics", f"{metric}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(HERE, "metrics", metric, "reader of metric").read
 
 
 def forbidden_modules() -> list:
@@ -80,13 +112,10 @@ class Run:
     (the CPU serves the harness's own tests)."""
 
     def __init__(self, spec: dict, seed: int, device: str = "cuda"):
-        from portbench.gen.world import make_inputs
-        from portbench.program import Service
-
         self.spec, self.seed, self.device = spec, seed, device
-        t = spec["traffic"]
-        self.inputs = make_inputs(seed, spec["config"], t["queries"], t.get("rerank_k", 0) > 0)
-        self.svc = Service(self.inputs, spec["config"], t, device)
+        kind, t = spec["kind"], spec["traffic"]
+        self.inputs = kind.make_inputs(seed, spec["config"], t)
+        self.svc = kind.Service(self.inputs, spec["config"], t, device)
         self.batch = t["batch"]
         self.n_b = len(self.svc.batches)
 
@@ -98,7 +127,8 @@ class Run:
         """Warm the build on a slice of the map, build the index (traced,
         ``BUILD_REPEATS`` times: the mean build's seconds; a service that
         rebuilds a map finds its allocator warm), warm every request shape
-        and the TRUNC_SCAN fallback."""
+        and what else the service answers with (``warm``: the graph kind's
+        TRUNC_SCAN fallback)."""
         svc = self.svc
         svc.build(frames=WARM_FRAMES)
         repeats = BUILD_REPEATS if staged else 1
@@ -111,7 +141,7 @@ class Run:
             svc.serve(i)
             if staged:
                 svc.staged(i, {})
-        svc.warm_fallback()
+        svc.warm()
         self.sync()
         gc.collect()
         return seconds
@@ -133,28 +163,14 @@ class Run:
             gc.enable()
         return out, spans
 
-    def valid_points(self, ids, frames_k) -> tuple[int, int]:
-        """Point pairs of a request's rerank, counted from the clouds' masks:
-        (sum over its problems of the query's valid points times its
-        candidate keyframe's, sum over its queries of valid points
-        squared). ``frames_k`` indexes the map's clouds as the program's
-        gather does, padded rows holding no point."""
-        nq = self.inputs["query_masks"][ids].sum(1).astype(np.int64)
-        nm = np.zeros(self.svc.db.frame_poses.shape[0], np.int64)
-        counts = self.inputs["map_masks"].sum(1)
-        nm[: counts.size] = counts
-        return int((nq[:, None] * nm[frames_k]).sum()), int((nq * nq).sum())
-
     def profile(self, n: int):
         """The process's one profiler session: ``n`` staged requests, then
         ``n`` whole ones. Returns (answers, record parts)."""
         from torch.profiler import ProfilerActivity, profile, record_function
 
-        from portbench import trace, work
+        from portbench import trace
 
-        svc, t = self.svc, self.spec["traffic"]
-        totals = [svc.scan_totals(i % self.n_b) for i in range(n)]
-        f_pad = svc.db.frame_poses.shape[0]
+        svc = self.svc
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device == "cuda" else [])
         answers, spans = [], {}
         self.sync()
@@ -169,13 +185,7 @@ class Run:
             path = os.path.join(d, "trace.json")
             prof.export_chrome_trace(path)
             summary = trace.summarize(trace.load(path))
-        need = {"search": sum(work.bound_s(nbytes=work.search_bytes(x, f_pad)) for x in totals)}
-        if t.get("rerank_k"):
-            need["refine"] = sum(
-                work.bound_s(flops=work.refine_flops(nn, kn, *self.valid_points(ids, a["frames"][:, : t["rerank_k"]])))
-                for nn, kn, (ids, a) in zip(spans.get("nn1_launches", []), spans.get("knn_launches", []),
-                                            ((self.svc.batches[b][0], a) for b, a in answers[:n])))
-        return answers, {"profile": summary, "work": need, "scans": n * self.batch}
+        return answers, {"profile": summary, "work": svc.work(answers[:n], spans), "scans": n * self.batch}
 
 
 def run(root: str, name: str, seed: int, seconds: float, traced: bool, device: str = "cuda",
@@ -186,8 +196,7 @@ def run(root: str, name: str, seed: int, seconds: float, traced: bool, device: s
     r = Run(spec, seed, device)
     build_s = r.setup(staged=traced)
     setup_s = time.perf_counter() - t_start
-    log(f"{name} seed {seed}: set-up {setup_s:.3f} s, index build {build_s:.4f} s, "
-        f"{r.svc.report.num_rows} rows, scan budget {r.svc.cfg.caps.max_scan_slots}, {r.n_b} batches of {r.batch}")
+    log(f"{name} seed {seed}: set-up {setup_s:.3f} s, index build {build_s:.4f} s, {r.svc.describe()}")
     reqs, spans = r.window(seconds, staged=traced)
     answers = [(r.svc.batches[b][0], a) for b, _, _, a in reqs]
     scans = sum(len(r.svc.batches[b][0]) for b, *_ in reqs)
@@ -212,14 +221,13 @@ def run(root: str, name: str, seed: int, seconds: float, traced: bool, device: s
     if device == "cuda":
         torch.cuda.empty_cache()
     from portbench import check
-    from portbench.reference.pipeline import answers as reference
 
     t0 = time.perf_counter()
-    ref = reference(r.inputs, spec["config"], spec["traffic"], device)
-    nums = check.numbers(answers, ref)
+    ref = spec["kind"].reference(r.inputs, spec["config"], spec["traffic"], device)
+    nums = spec["kind"].numbers(answers, ref)
     ok, table = check.verdict(nums, spec["limits"])
-    log(f"check: {nums['answers']} answers against the reference in {time.perf_counter() - t0:.3f} s; "
-        f"beside the compared numbers: {nums['extras']}")
+    log(f"check: {nums.get('answers')} answers against the reference in {time.perf_counter() - t0:.3f} s; "
+        f"beside the compared numbers: {nums.get('extras')}")
 
     dev = {"platform": "gpu" if device == "cuda" else "cpu",
            "kind": torch.cuda.get_device_name(0) if device == "cuda" else "cpu",

@@ -33,6 +33,8 @@ from sgtd_tpu_torch.match.verify import verify_candidates
 from sgtd_tpu_torch.refine.gicp import gicp_align, point_covariances
 from sgtd_tpu_torch.utils import disable_tf32
 
+from portbench.work import bound_s, refine_flops, search_bytes
+
 # Index of the B4 (nn1) and B5 (knn) launch counters in ops.launch_counts().
 NN1, KNN = 3, 4
 
@@ -57,7 +59,7 @@ class Service:
         self.k = traffic.get("rerank_k", 0)
         self.base = sgtd_config(config)
         self.calibrate_n = config["calibrate_queries"]
-        b = traffic["batch"]
+        self.batch = b = traffic["batch"]
         q = inputs["queries"]
         self.batches = []
         for s in range(0, len(q), b):
@@ -131,7 +133,7 @@ class Service:
             for key in ans:
                 ans[key][j] = one[key][0]
 
-    def warm_fallback(self) -> None:
+    def warm(self) -> None:
         """Answer the first query through the TRUNC_SCAN fallback once."""
         g, clouds = self._to_device(self.batches[0][1])
         ans = self._read(localize(self.db, g, self.cfg))
@@ -209,6 +211,40 @@ class Service:
         probes read)."""
         g, _ = self._to_device(self.batches[i][1])
         return scan_totals(self.db, build_descriptors(g, self.cfg.desc, self.cfg.caps), self.cfg.desc).cpu().numpy()
+
+    # -- what the harness reads --
+
+    def describe(self) -> str:
+        """The index and the traffic, for the set-up's log line."""
+        return (f"{self.report.num_rows} rows, scan budget {self.cfg.caps.max_scan_slots}, "
+                f"{len(self.batches)} batches of {self.batch}")
+
+    def valid_points(self, ids, frames_k) -> tuple[int, int]:
+        """Point pairs of a request's rerank, counted from the clouds' masks:
+        (sum over its problems of the query's valid points times its
+        candidate keyframe's, sum over its queries of valid points
+        squared). ``frames_k`` indexes the map's clouds as the program's
+        gather does, padded rows holding no point."""
+        nq = self.inputs["query_masks"][ids].sum(1).astype(np.int64)
+        nm = np.zeros(self.db.frame_poses.shape[0], np.int64)
+        counts = self.inputs["map_masks"].sum(1)
+        nm[: counts.size] = counts
+        return int((nq[:, None] * nm[frames_k]).sum()), int((nq * nq).sum())
+
+    def work(self, profiled_answers, spans: dict) -> dict:
+        """The least seconds the card needs for each stage of the profiled
+        staged requests ``[(batch, answer)]`` (``work.py``): the search's
+        scanned slots and vote rows, and in refined cells the rerank's
+        nearest-neighbour distances, by the launch counts ``staged`` put
+        in ``spans``."""
+        f_pad = self.db.frame_poses.shape[0]
+        need = {"search": sum(bound_s(nbytes=search_bytes(self.scan_totals(b), f_pad)) for b, _ in profiled_answers)}
+        if self.k:
+            need["refine"] = sum(
+                bound_s(flops=refine_flops(nn, kn, *self.valid_points(self.batches[b][0], a["frames"][:, : self.k])))
+                for nn, kn, (b, a) in zip(spans.get("nn1_launches", []), spans.get("knn_launches", []),
+                                          profiled_answers))
+        return need
 
 
 @dataclasses.dataclass

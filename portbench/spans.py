@@ -390,7 +390,6 @@ def measure(root: str, name: str, seed: int, seconds: float, device: str = "cuda
     import torch
 
     from portbench import check, harness
-    from portbench.reference.pipeline import answers as reference
 
     spec = harness.load_cell(root, name, base or harness.HERE)
     run = harness.Run(spec, seed, device)
@@ -404,8 +403,9 @@ def measure(root: str, name: str, seed: int, seconds: float, device: str = "cuda
     run.svc.free()
     if device == "cuda":
         torch.cuda.empty_cache()
-    ref = reference(run.inputs, spec["config"], spec["traffic"], device)
-    ok, table = check.verdict(check.numbers(answers, ref), spec["limits"])
+    kind = spec["kind"]
+    ref = kind.reference(run.inputs, spec["config"], spec["traffic"], device)
+    ok, table = check.verdict(kind.numbers(answers, ref), spec["limits"])
     w, g = record["trace_window"], record["trace_group"]
     rate = lambda p: p["scans"] / p["seconds"]
     per_request = w["spans"] / w["requests"]

@@ -3,7 +3,8 @@
 Tiny cells (24 keyframes, 8 queries, small clouds) run the whole of a run
 on the CPU, the look for a card skipped: the program against the plain
 reference, the reference's pair-list rules, the faults a check must catch,
-the control, and what the process has imported. A test that needs the card
+the control, what the process has imported, and a configuration of
+another kind brought as files alone. A test that needs the card
 says so inside itself and skips here.
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ast
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -137,6 +139,191 @@ def test_a_new_cell_is_found_from_added_files_alone(tmp_path):
     assert all((base / p).read_bytes() == b for p, b in before.items())
 
 
+# -- a configuration's kind ------------------------------------------------
+
+TOY_KIND = '''"""A kind of configuration that only a test brings: the norm of each row
+of a matrix made from the seed, on the device, against float64 NumPy."""
+
+import time
+
+import numpy as np
+import torch
+
+
+def check(config, traffic):
+    if traffic["batch"] < 1:
+        raise ValueError("a batch holds a row or more")
+
+
+def make_inputs(seed, config, traffic):
+    rng = np.random.default_rng([abs(seed), int(seed < 0)])
+    return {"rows": rng.standard_normal((traffic["queries"], config["width"])).astype(np.float32)}
+
+
+class Service:
+    def __init__(self, inputs, config, traffic, device):
+        self.dev, self.rows, b = torch.device(device), inputs["rows"], traffic["batch"]
+        self.batches = [(list(range(s, min(s + b, len(self.rows)))), self.rows[s : s + b])
+                        for s in range(0, len(self.rows), b)]
+        self.table = None
+
+    def build(self, frames=None):
+        self.table = torch.from_numpy(self.rows[:frames]).to(self.dev)
+
+    def free(self):
+        self.table = None
+
+    def serve(self, i):
+        x = torch.from_numpy(self.batches[i][1]).to(self.dev)
+        return {"norm": torch.linalg.vector_norm(x, dim=1).cpu().numpy()}
+
+    def staged(self, i, spans, profiled=False):
+        t0 = time.perf_counter()
+        ans = self.serve(i)
+        spans.setdefault("norm", []).append((time.perf_counter() - t0) * 1e3)
+        return ans
+
+    def warm(self):
+        pass
+
+    def describe(self):
+        return f"{len(self.batches)} batches"
+
+    def work(self, profiled_answers, spans):
+        return {"norm": sum(4.0 * self.batches[b][1].size for b, _ in profiled_answers) / 3.35e12}
+
+
+def reference(inputs, config, traffic, device, control=False):
+    x = inputs["rows"].astype(np.float16 if control else np.float64)
+    return {"norm": np.sqrt((x * x).sum(1, dtype=x.dtype))}
+
+
+def numbers(answers, ref):
+    ids = np.concatenate([q for q, _ in answers])
+    got = np.concatenate([a["norm"] for _, a in answers])
+    return {"norm_gap": float(np.max(np.abs(got - ref["norm"][ids]) / ref["norm"][ids])), "answers": int(ids.size),
+            "extras": {}}
+
+
+def control_answers(ref_ctl):
+    return [(np.arange(len(ref_ctl["norm"])), {"norm": ref_ctl["norm"]})]
+
+
+def readings(answers, ref):
+    return numbers(answers, ref)
+'''
+
+
+@pytest.fixture
+def toy(tmp_path):
+    """A benchmark directory of one cell of the toy kind, its files all new."""
+    d = str(tmp_path)
+    bench = _json(os.path.join(ROOT, "BENCHMARK.json"))
+    bench["workloads"] = [{"name": "toy.rows.b4", "config": "toy", "traffic": "rows.b4", "chips": 1, "why": "a test"}]
+    for m in bench["end_to_end"]:
+        m.pop("workloads", None)
+    bench["per_layer"] = [dict(next(m for m in bench["per_layer"] if m["name"] == "index_build_s"),
+                               workloads=["toy.rows.b4"])]
+    _write(os.path.join(d, "BENCHMARK.json"), bench)
+    _write(os.path.join(d, "configs", "toy.json"), {"name": "toy", "kind": "toy", "width": 16})
+    _write(os.path.join(d, "traffic", "rows.b4.json"), {"batch": 4, "queries": 32})
+    _write(os.path.join(d, "cells", "toy.rows.b4.json"), {"limits": {"norm_gap": 1e-5}})
+    os.makedirs(os.path.join(d, "kinds"))
+    with open(os.path.join(d, "kinds", "toy.py"), "w") as f:
+        f.write(TOY_KIND)
+    return d
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_kind_added_as_files_runs_correct(toy, traced):
+    out = _run(toy, "toy.rows.b4", traced=traced)
+    assert out["correct"], out["checks"]
+    assert list(out["checks"]) == ["norm_gap"] and out["attempted"] >= 32
+    assert set(out["metrics"]) == ({"index_build_s"} if traced else {"scans_per_s", "latency_p95_ms", "setup_s"})
+    # The benchmark's own files know nothing of the toy kind.
+    assert not os.path.exists(os.path.join(PB, "kinds", "toy.py"))
+    for d, _, files in os.walk(PB):
+        if os.path.basename(d) not in ("tests", "__pycache__"):
+            for f in files:
+                assert "toy" not in open(os.path.join(d, f), errors="replace").read(), f
+
+
+def test_the_toy_kinds_control_is_not_correct(toy):
+    spec = harness.load_cell(toy, "toy.rows.b4", base=toy)
+    kind = spec["kind"]
+    inputs = kind.make_inputs(2**31 + 5, spec["config"], spec["traffic"])
+    ref = kind.reference(inputs, spec["config"], spec["traffic"], "cpu")
+    ctl = kind.reference(inputs, spec["config"], spec["traffic"], "cpu", control=True)
+    ok, table = check.verdict(kind.numbers(kind.control_answers(ctl), ref), spec["limits"])
+    assert not ok, table
+
+
+def test_the_readings_of_a_kind_added_as_files(toy):
+    """``readings.py`` takes a new kind's sound and control readings, which
+    its limits are set from, with no edit."""
+    from portbench.readings import readings
+
+    out = readings("toy.rows.b4", 2**31 + 7, control=True, device="cpu", root=toy, base=toy)
+    assert out["replay_off"] == 0 and out["index"] == "8 batches"
+    assert out["sound"]["norm_gap"] <= 1e-5 < out["control"]["norm_gap"]
+
+
+def test_a_kind_refuses_traffic_it_cannot_serve_before_set_up(toy, tiny, tmp_path):
+    _write(os.path.join(toy, "traffic", "rows.b4.json"), {"batch": 0, "queries": 32})
+    d = str(tmp_path / "graph")
+    shutil.copytree(tiny, d)
+    traffic = _json(os.path.join(d, "traffic", "refined.b4.json"))
+    _write(os.path.join(d, "traffic", "refined.b4.json"), dict(traffic, rerank_k=0))
+    with mock.patch.object(harness, "Run", side_effect=AssertionError("set-up began")):
+        with pytest.raises(ValueError, match="rows.b4: a batch holds"):
+            _run(toy, "toy.rows.b4")
+        with pytest.raises(ValueError, match="refined.b4: localize_refined, and only it"):
+            _run(d, "tiny.refined.b4")
+
+
+@pytest.mark.parametrize("cell", ["tiny.refined.b4", "tiny.desc.b1"])
+def test_an_explicit_graph_kind_is_the_default(tiny, tmp_path, cell):
+    """``"kind": "graph"`` in the configuration gives the answers and the
+    check table that no key gives."""
+    d = str(tmp_path)
+    shutil.copytree(tiny, d, dirs_exist_ok=True)
+    config, traffic, _ = CELLS[cell]
+    named = dict(_json(os.path.join(tiny, "configs", f"{config}.json")), kind="graph")
+    _write(os.path.join(d, "configs", f"{config}.json"), named)
+    out = []
+    for base in (tiny, d):
+        spec = harness.load_cell(base, cell, base=base)
+        assert spec["kind"].__name__ == "portbench_kinds_graph"
+        r = harness.Run(spec, 17, "cpu")
+        r.svc.build()
+        answers = [(ids, r.svc.serve(i)) for i, (ids, _) in enumerate(r.svc.batches)]
+        ref = spec["kind"].reference(r.inputs, spec["config"], spec["traffic"], "cpu")
+        out.append((r.inputs, answers, check.verdict(spec["kind"].numbers(answers, ref), spec["limits"])))
+    (inp_a, ans_a, table_a), (inp_b, ans_b, table_b) = out
+    assert table_a == table_b and table_a[0], table_a
+    assert _same(inp_a, inp_b) and _same(ans_a, ans_b)
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, through dicts, lists, tuples and dataclasses."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if dataclasses.is_dataclass(a):
+        return _same(vars(a), vars(b))
+    return np.array_equal(a, b)
+
+
+def test_an_unknown_kind_fails_before_set_up(tiny, tmp_path):
+    d = str(tmp_path)
+    shutil.copytree(tiny, d, dirs_exist_ok=True)
+    _write(os.path.join(d, "configs", "tiny.json"), dict(TINY, kind="lattice9"))
+    with mock.patch.object(harness, "Run", side_effect=AssertionError("set-up began")):
+        with pytest.raises(ValueError, match="lattice9"):
+            _run(d, "tiny.desc.b1")
+
+
 # -- readers and the trace -------------------------------------------------
 
 RECORD = {
@@ -208,7 +395,7 @@ def test_refine_work_counts_valid_points_only(tiny):
     frames = np.array([[0, 1], [2, -1]])
     if r.svc.db.frame_poses.shape[0] == mm.shape[0]:
         frames[1, 1] = 3
-    pairs, self_pairs = r.valid_points([0, 1], frames)
+    pairs, self_pairs = r.svc.valid_points([0, 1], frames)
     nq, nm = qm[:2].sum(1), mm.sum(1)
     want = nq[0] * (nm[0] + nm[1]) + nq[1] * (nm[2] + (nm[3] if frames[1, 1] == 3 else 0))
     assert (pairs, self_pairs) == (want, int((nq * nq).sum()))
@@ -398,9 +585,8 @@ def test_a_broken_timed_path_is_not_correct(tiny, cell, target, fault, counted):
 @pytest.mark.parametrize("cell", ["tiny.refined.b4", "tiny.desc.b1"])
 def test_the_control_is_not_correct(tiny, cell):
     """The reference in TF32 in the program's place fails the cell's limits."""
-    from portbench.readings import control_answers
-
     spec = harness.load_cell(tiny, cell, base=tiny)
+    control_answers = spec["kind"].control_answers
     inputs = world.make_inputs(21, spec["config"], spec["traffic"]["queries"], spec["traffic"]["rerank_k"] > 0)
     ref = ref_pipeline.answers(inputs, spec["config"], spec["traffic"], "cpu")
     ctl = ref_pipeline.answers(inputs, spec["config"], spec["traffic"], "cpu", control=True)
