@@ -28,6 +28,13 @@ float32 arithmetic as XLA:CPU compiles it, on any device:
 
 Cluster sums run over each cluster's points in point order (the
 reference's scatter order), with no atomics on the card.
+
+Under the tracer (``utils.profiling``), a call is the span
+``cluster.dcvc`` holding ``dcvc.voxels`` (coordinates, occupied voxels,
+neighbour slots), ``dcvc.components`` (the propagation) and
+``dcvc.stats`` (cluster slots and their sums), with the counters
+``dcvc.sweeps`` (propagation sweeps, known on the host) and
+``dcvc.voxels`` (occupied voxels).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from sgtd_tpu_torch.config import DcvcConfig
-from sgtd_tpu_torch.utils import fma_f32, segment_max, segment_sum, sorted_unique_head, sq_norm_fma, sqrt_rn
+from sgtd_tpu_torch.utils import fma_f32, profiling, segment_max, segment_sum, sorted_unique_head, sq_norm_fma, sqrt_rn
 
 I32_MAX = 2**31 - 1
 
@@ -195,6 +202,7 @@ def _pack(az, polar, pitch):
     return az * _AZ_STRIDE + polar * _POLAR_STRIDE + pitch
 
 
+@profiling.traced("cluster.dcvc")
 def dcvc_cluster(
     points: torch.Tensor,
     mask: torch.Tensor,
@@ -216,76 +224,84 @@ def dcvc_cluster(
     c_max = cfg.max_clusters
     i32 = dict(dtype=torch.int32, device=dev)
 
-    az, polar, pitch, ok, width = _voxel_coords(points, mask, cfg)
-    g = torch.zeros(n, **i32) if group is None else group.to(torch.int32).clamp(0, _GROUP_MAX - 1)
-    vid = torch.where(ok, g * _GROUP_STRIDE + _pack(az, polar, pitch), I32_MAX).to(torch.int32)
+    with profiling.span("dcvc.voxels"):
+        az, polar, pitch, ok, width = _voxel_coords(points, mask, cfg)
+        g = torch.zeros(n, **i32) if group is None else group.to(torch.int32).clamp(0, _GROUP_MAX - 1)
+        vid = torch.where(ok, g * _GROUP_STRIDE + _pack(az, polar, pitch), I32_MAX).to(torch.int32)
 
-    # Occupied voxels: the first v_max distinct ids, ascending.
-    uvid = sorted_unique_head(vid, v_max, I32_MAX)
-    v_valid = uvid != I32_MAX
-    pslot = torch.searchsorted(uvid, vid).to(torch.int32)
-    pslot = torch.where(ok, pslot.clamp(max=v_max - 1), v_max - 1)
+        # Occupied voxels: the first v_max distinct ids, ascending.
+        uvid = sorted_unique_head(vid, v_max, I32_MAX)
+        v_valid = uvid != I32_MAX
+        profiling.count_mask("dcvc.voxels", v_valid, True)
+        pslot = torch.searchsorted(uvid, vid).to(torch.int32)
+        pslot = torch.where(ok, pslot.clamp(max=v_max - 1), v_max - 1)
 
-    # Neighbour slots per occupied voxel (26-connectivity, same group).
-    ug = uvid // _GROUP_STRIDE
-    urest = uvid % _GROUP_STRIDE
-    ua, up, ut = urest // _AZ_STRIDE, (urest % _AZ_STRIDE) // _POLAR_STRIDE, urest % _POLAR_STRIDE
-    offs = torch.from_numpy(_NEIGH).to(dev)
-    na = ua[:, None] + offs[None, :, 0]
-    na = torch.where(na < 0, width - 1, na)  # azimuth wrap (ref :375-376)
-    na = torch.where(na >= width, 0, na)
-    np_ = up[:, None] + offs[None, :, 1]
-    nt = ut[:, None] + offs[None, :, 2]
-    coord_ok = (np_ >= 0) & (np_ < _POLAR_MAX) & (nt >= 0) & (nt < _PITCH_MAX)
-    nvid = (ug[:, None] * _GROUP_STRIDE + _pack(na, np_.clamp(0, _POLAR_MAX - 1), nt.clamp(0, _PITCH_MAX - 1))).to(torch.int32)
-    nslot = torch.searchsorted(uvid, nvid).to(torch.int32).clamp(max=v_max - 1)
-    n_ok = coord_ok & v_valid[:, None] & (uvid[nslot.long()] == nvid)
-    init = torch.arange(v_max, **i32)
-    nslot = torch.where(n_ok, nslot, init[:, None]).long()
+        # Neighbour slots per occupied voxel (26-connectivity, same group).
+        ug = uvid // _GROUP_STRIDE
+        urest = uvid % _GROUP_STRIDE
+        ua, up, ut = urest // _AZ_STRIDE, (urest % _AZ_STRIDE) // _POLAR_STRIDE, urest % _POLAR_STRIDE
+        offs = torch.from_numpy(_NEIGH).to(dev)
+        na = ua[:, None] + offs[None, :, 0]
+        na = torch.where(na < 0, width - 1, na)  # azimuth wrap (ref :375-376)
+        na = torch.where(na >= width, 0, na)
+        np_ = up[:, None] + offs[None, :, 1]
+        nt = ut[:, None] + offs[None, :, 2]
+        coord_ok = (np_ >= 0) & (np_ < _POLAR_MAX) & (nt >= 0) & (nt < _PITCH_MAX)
+        nvid = (ug[:, None] * _GROUP_STRIDE
+                + _pack(na, np_.clamp(0, _POLAR_MAX - 1), nt.clamp(0, _PITCH_MAX - 1))).to(torch.int32)
+        nslot = torch.searchsorted(uvid, nvid).to(torch.int32).clamp(max=v_max - 1)
+        n_ok = coord_ok & v_valid[:, None] & (uvid[nslot.long()] == nvid)
+        init = torch.arange(v_max, **i32)
+        nslot = torch.where(n_ok, nslot, init[:, None]).long()
 
     # Connected components: min-label propagation with pointer jumping.
     # The fixed point (each voxel labelled by its component's smallest
     # slot) does not depend on the order of updates.
-    label = init
-    while True:
-        ITERATIONS += 1
-        new = torch.minimum(label, label[nslot].min(dim=1).values)
-        new = torch.minimum(new, new[new.long()])
-        new = torch.minimum(new, new[new.long()])
-        if torch.equal(new, label):
-            break
-        label = new
+    with profiling.span("dcvc.components"):
+        label = init
+        sweeps = 0
+        while True:
+            sweeps += 1
+            new = torch.minimum(label, label[nslot].min(dim=1).values)
+            new = torch.minimum(new, new[new.long()])
+            new = torch.minimum(new, new[new.long()])
+            if torch.equal(new, label):
+                break
+            label = new
+        ITERATIONS += sweeps
+        profiling.count("dcvc.sweeps", sweeps)
 
-    # Compact component roots into cluster slots, largest first (ties to
-    # the lower slot, as the reference's top_k).
-    ok_f = ok.to(torch.float32)
-    pcount_v = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, pslot.long(), ok_f)
-    root_pts = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, label.long(), pcount_v)
-    is_root = (label == init) & v_valid
-    root_score = torch.where(is_root, root_pts, -1.0)
-    top = torch.sort(root_score, descending=True, stable=True)
-    top_score, top_root = top.values[:c_max], top.indices[:c_max]
-    slot_of_root = torch.full((v_max,), -1, **i32)
-    slot_of_root[top_root] = torch.where(top_score > 0, torch.arange(top_score.shape[0], **i32), -1)
-    vox_cluster = torch.where(v_valid, slot_of_root[label.long()], -1)
-    pc = torch.where(ok, vox_cluster[pslot.long()], -1)
+    with profiling.span("dcvc.stats"):
+        # Compact component roots into cluster slots, largest first (ties
+        # to the lower slot, as the reference's top_k).
+        ok_f = ok.to(torch.float32)
+        pcount_v = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, pslot.long(), ok_f)
+        root_pts = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, label.long(), pcount_v)
+        is_root = (label == init) & v_valid
+        root_score = torch.where(is_root, root_pts, -1.0)
+        top = torch.sort(root_score, descending=True, stable=True)
+        top_score, top_root = top.values[:c_max], top.indices[:c_max]
+        slot_of_root = torch.full((v_max,), -1, **i32)
+        slot_of_root[top_root] = torch.where(top_score > 0, torch.arange(top_score.shape[0], **i32), -1)
+        vox_cluster = torch.where(v_valid, slot_of_root[label.long()], -1)
+        pc = torch.where(ok, vox_cluster[pslot.long()], -1)
 
-    # Per-cluster stats; slot c_max gathers the unclustered points.
-    seg = torch.where(pc >= 0, pc, c_max)
-    ones = (pc >= 0).to(torch.float32)
-    counts = segment_sum(ones, seg, c_max + 1)[:c_max]
-    sums = segment_sum(points * ones[:, None], seg, c_max + 1)[:c_max]
-    denom = counts.clamp(min=1.0)[:, None]
-    centroids = sums / denom
-    sq = segment_sum(sq_norm_fma(points) * ones, seg, c_max + 1)[:c_max]
-    density = sq / denom[:, 0] - sq_norm_fma(centroids)
-    cgroup = segment_max(torch.where(pc >= 0, g, 0), seg, c_max + 1)[:c_max]
-    min_seg_arr = torch.as_tensor(min_seg, dtype=torch.float32, device=dev).expand(n)
-    c_min_seg = segment_max(torch.where(pc >= 0, min_seg_arr, 0.0), seg, c_max + 1)[:c_max]
-    valid = (counts >= c_min_seg.clamp(min=1.0)) & (counts > 0)
+        # Per-cluster stats; slot c_max gathers the unclustered points.
+        seg = torch.where(pc >= 0, pc, c_max)
+        ones = (pc >= 0).to(torch.float32)
+        counts = segment_sum(ones, seg, c_max + 1)[:c_max]
+        sums = segment_sum(points * ones[:, None], seg, c_max + 1)[:c_max]
+        denom = counts.clamp(min=1.0)[:, None]
+        centroids = sums / denom
+        sq = segment_sum(sq_norm_fma(points) * ones, seg, c_max + 1)[:c_max]
+        density = sq / denom[:, 0] - sq_norm_fma(centroids)
+        cgroup = segment_max(torch.where(pc >= 0, g, 0), seg, c_max + 1)[:c_max]
+        min_seg_arr = torch.as_tensor(min_seg, dtype=torch.float32, device=dev).expand(n)
+        c_min_seg = segment_max(torch.where(pc >= 0, min_seg_arr, 0.0), seg, c_max + 1)[:c_max]
+        valid = (counts >= c_min_seg.clamp(min=1.0)) & (counts > 0)
 
-    keep = torch.where(pc >= 0, valid[pc.clamp(min=0).long()], False)
-    pc = torch.where(keep, pc, -1)
+        keep = torch.where(pc >= 0, valid[pc.clamp(min=0).long()], False)
+        pc = torch.where(keep, pc, -1)
     return ClusterResult(
         point_cluster=pc.to(torch.int32),
         centroids=centroids,

@@ -17,6 +17,11 @@ device:
 Sums follow the reference's order on the CPU: segment sums point by point
 (``utils.segment_sum``), the whole-class sums as XLA:CPU's row reduction
 adds them (:func:`_xla_row_sum`), squares as FMA chains.
+
+Under the tracer (``utils.profiling``), a scan is the span ``graph.build``
+holding ``cluster.dcvc``, ``graph.gt_group``, ``graph.whole`` and
+``graph.compact``, with the counters ``graph.points`` (valid points) and
+``graph.nodes`` (kept nodes).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from sgtd_tpu_torch.cluster.dcvc import ClusterResult, dcvc_cluster
 from sgtd_tpu_torch.config import CapacityConfig, DcvcConfig
 from sgtd_tpu_torch.graph.types import SemanticGraph
-from sgtd_tpu_torch.utils import segment_max, segment_sum, sorted_unique_head, sq_norm_fma
+from sgtd_tpu_torch.utils import profiling, segment_max, segment_sum, sorted_unique_head, sq_norm_fma
 
 I32_MAX = 2**31 - 1
 
@@ -139,6 +144,7 @@ def _group_by_key(points: torch.Tensor, key: torch.Tensor, c_max: int, min_pts: 
     return pc, centroids, counts, density, ukey, valid
 
 
+@profiling.traced("graph.build")
 def build_graph_arrays(
     points: torch.Tensor,
     sem: torch.Tensor,
@@ -155,6 +161,7 @@ def build_graph_arrays(
     Returns (centers (M, 3), labels (M,), density (M,), node_mask (M,)).
     """
     dev = points.device
+    profiling.count_mask("graph.points", mask, True)
     is_inst_tab, min_seg_tab, node_label_tab = (torch.from_numpy(t).to(dev) for t in routing.tables())
     sem_c = sem.to(torch.int32).clamp(0, 31)
     inst = inst.to(torch.int32)
@@ -171,47 +178,51 @@ def build_graph_arrays(
     dcvc_labels = node_label_tab[dcvc_res.group.clamp(0, 31).long()]
 
     # One grouping pass over (class, instance) for GT-labelled classes.
-    gt_key = torch.where(use_gt, sem_c * 65536 + inst.clamp(0, 65535), I32_MAX).to(torch.int32)
-    _, gt_cent, gt_cnt, gt_den, gt_ukey, gt_valid = _group_by_key(
-        points, gt_key, dcvc.max_clusters, float(GT_MIN_POINTS))
-    gt_labels = node_label_tab[(gt_ukey // 65536).clamp(0, 31).long()]
+    with profiling.span("graph.gt_group"):
+        gt_key = torch.where(use_gt, sem_c * 65536 + inst.clamp(0, 65535), I32_MAX).to(torch.int32)
+        _, gt_cent, gt_cnt, gt_den, gt_ukey, gt_valid = _group_by_key(
+            points, gt_key, dcvc.max_clusters, float(GT_MIN_POINTS))
+        gt_labels = node_label_tab[(gt_ukey // 65536).clamp(0, 31).long()]
 
     # Whole-kept classes: one instance from all points of the class.
-    whole = []
-    node_map = dict(routing.node_map)
-    for c in routing.whole_classes:
-        cmask = mask & (sem_c == c)
-        # The count, the coordinate sums and the sum of squares as five
-        # columns of one reduction (each column adds in the same order).
-        cols = torch.cat([cmask.to(torch.float32)[:, None], torch.where(cmask[:, None], points, 0.0),
-                          torch.where(cmask, sq_norm_fma(points), 0.0)[:, None]], dim=1)
-        cnt, sums, sq = _xla_row_sum(cols).split([1, 3, 1])
-        denom = cnt.clamp(min=1.0)
-        centroid = sums / denom
-        density = (sq / denom - sq_norm_fma(centroid)).clamp(min=0.0)
-        whole.append((centroid[None], torch.full((1,), node_map[c], dtype=torch.int32, device=dev),
-                      density, cnt > 0))
+    with profiling.span("graph.whole"):
+        whole = []
+        node_map = dict(routing.node_map)
+        for c in routing.whole_classes:
+            cmask = mask & (sem_c == c)
+            # The count, the coordinate sums and the sum of squares as five
+            # columns of one reduction (each column adds in the same order).
+            cols = torch.cat([cmask.to(torch.float32)[:, None], torch.where(cmask[:, None], points, 0.0),
+                              torch.where(cmask, sq_norm_fma(points), 0.0)[:, None]], dim=1)
+            cnt, sums, sq = _xla_row_sum(cols).split([1, 3, 1])
+            denom = cnt.clamp(min=1.0)
+            centroid = sums / denom
+            density = (sq / denom - sq_norm_fma(centroid)).clamp(min=0.0)
+            whole.append((centroid[None], torch.full((1,), node_map[c], dtype=torch.int32, device=dev),
+                          density, cnt > 0))
 
-    centers = torch.cat([w[0] for w in whole] + [dcvc_res.centroids, gt_cent])
-    labels = torch.cat([w[1] for w in whole] + [dcvc_labels, gt_labels])
-    density = torch.cat([w[2] for w in whole] + [dcvc_res.density, gt_den])
-    valid = torch.cat([w[3] for w in whole] + [dcvc_res.valid, gt_valid])
+    with profiling.span("graph.compact"):
+        centers = torch.cat([w[0] for w in whole] + [dcvc_res.centroids, gt_cent])
+        labels = torch.cat([w[1] for w in whole] + [dcvc_labels, gt_labels])
+        density = torch.cat([w[2] for w in whole] + [dcvc_res.density, gt_den])
+        valid = torch.cat([w[3] for w in whole] + [dcvc_res.valid, gt_valid])
 
-    # Node labels must land in the keep range (ref :288).
-    valid = valid & (labels >= routing.keep_lo) & (labels <= routing.keep_hi)
+        # Node labels must land in the keep range (ref :288).
+        valid = valid & (labels >= routing.keep_lo) & (labels <= routing.keep_hi)
 
-    # Compact to max_nodes, keeping the (source, cluster-slot) order.
-    m = caps.max_nodes
-    total = valid.shape[0]
-    prio = torch.where(valid, torch.arange(total, dtype=torch.int32, device=dev), total)
-    sel = torch.sort(prio, stable=True).indices[:m]
-    node_mask = prio[sel] < total
-    return (
-        torch.where(node_mask[:, None], centers[sel], 0.0),
-        torch.where(node_mask, labels[sel], 0),
-        torch.where(node_mask, density[sel], 0.0),
-        node_mask,
-    )
+        # Compact to max_nodes, keeping the (source, cluster-slot) order.
+        m = caps.max_nodes
+        total = valid.shape[0]
+        prio = torch.where(valid, torch.arange(total, dtype=torch.int32, device=dev), total)
+        sel = torch.sort(prio, stable=True).indices[:m]
+        node_mask = prio[sel] < total
+        profiling.count_mask("graph.nodes", node_mask, True)
+        return (
+            torch.where(node_mask[:, None], centers[sel], 0.0),
+            torch.where(node_mask, labels[sel], 0),
+            torch.where(node_mask, density[sel], 0.0),
+            node_mask,
+        )
 
 
 def build_graph(

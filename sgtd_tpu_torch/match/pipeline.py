@@ -7,7 +7,10 @@ GICP- or VGICP-align the query cloud against the top candidates' keyframe
 clouds and pick one (``localize_refined``, the full headline configuration) —
 here for a batch of query graphs at once (leading axis B) in place of
 the reference's vmap. ``localize_exact`` is the uncapped fallback for
-queries that ``localize`` flags TRUNC_SCAN.
+queries that ``localize`` flags TRUNC_SCAN. ``localize_scan`` starts one
+step earlier, from raw labeled scans: it builds their semantic graphs on
+the card (the reference's get_json.cpp, as ``build-map`` runs it) and
+localizes them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from sgtd_tpu_torch.config import GicpConfig, SGTDConfig
 from sgtd_tpu_torch.db.database import DescriptorDB
 from sgtd_tpu_torch.desc.triangles import Descriptors, build_descriptors
 from sgtd_tpu_torch.geom import se3
-from sgtd_tpu_torch.graph.types import SemanticGraph
+from sgtd_tpu_torch.graph.build import MULRAN_ROUTING, ClassRouting, build_graph
+from sgtd_tpu_torch.graph.types import SemanticGraph, stack_graphs
 from sgtd_tpu_torch.match.search import (
     CandidateSet,
     build_probe_table,
@@ -76,6 +80,33 @@ def localize(
     disable_tf32()
     query = build_descriptors(graphs, config.desc, config.caps)
     return localize_descriptors(db, query, config)
+
+
+@profiling.traced("localize_scan")
+def localize_scan(
+    db: DescriptorDB,
+    points: torch.Tensor,
+    sem: torch.Tensor,
+    inst: torch.Tensor,
+    mask: torch.Tensor,
+    config: SGTDConfig = SGTDConfig(),
+    routing: ClassRouting = MULRAN_ROUTING,
+) -> tuple[LocalizationResult, SemanticGraph]:
+    """Localize a batch of B raw labeled scans against ``db``.
+
+    points (B, N, 3) float32, sem and inst (B, N) int32 (train-id classes
+    and raw instance ids), mask (B, N) bool for padding, on one device.
+    Each scan's graph is built there (``graph.build.build_graph`` at
+    ``config.caps`` and ``config.dcvc``, identity pose), the graphs are
+    stacked and localized: the composition of ``build-map`` and
+    ``localize`` without the graph files, which round-trip bit for bit.
+    Returns the ``localize`` result and the built graphs.
+    """
+    eye = torch.eye(4, dtype=torch.float32, device=points.device)
+    graphs = [build_graph(points[b], sem[b], inst[b], mask[b], eye, config.caps, config.dcvc, routing)
+              for b in range(points.shape[0])]
+    batch = stack_graphs(graphs, points.device)
+    return localize(db, batch, config), batch
 
 
 # The reference's vmap of ``localize`` over a leading batch of query
