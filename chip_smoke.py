@@ -102,7 +102,18 @@ Phases (any failure ends the run with a non-zero exit):
    coincident points, candidates with 0 and 1 inlier pairs, all-invalid
    candidates, P 513, 130 and 3, H 1). Both bodies timed by CUDA events
    behind a device spin beside their bounds (``portbench.work.bound_s``)
-   and the wrappers' host cost. ``--kernels-only`` stops here.
+   and the wrappers' host cost. Then K3 ``grouped_sums``
+   (``check_grouped_kernel``; csrc/grouped.cu, the front end's cluster
+   sums, which replaces no TPU kernel) against its plain version, bit for
+   bit on the card and on the CPU, launched twice for the same bits: at
+   the cell ``hdl64.scan.b1``'s shape (131,072 rows, 256 slots, 85% of
+   the rows left out, slots of -1, S and int32's largest among them), with
+   no row left out, at S 1; then on the two calls ``build_graph`` makes on
+   one scan of that cell's kind (``hdl64_scan``): DCVC's and the instance
+   grouping's. On those, its body by CUDA events behind a device spin
+   beside its bound (bytes over 3.35 TB/s), the wrapper (sort and launch)
+   the same way, the plain version, and one ``torch.segment_reduce`` call
+   on the sorted columns (``library_ms``). ``--kernels-only`` stops here.
 3. The descriptor-only path on the bench world (seed 2026, 200 map
    keyframes, 64 queries): descriptors, on-device DB build and scan-slot
    calibration, then ``localize`` of all queries in chunks of 16. Gates:
@@ -217,7 +228,8 @@ Phases (any failure ends the run with a non-zero exit):
    labels and counts, B5 launched (``fec_launches`` in B5's record), B5's
    kernel and plain times at this shape beside its bound (B5's record,
    under ``fec``). Prints build-map scans/s in process (median of 3 passes
-   over the 64 map scans) and DCVC sweeps a scan.
+   over the 64 map scans) and DCVC sweeps a scan; K3 must launch twice a
+   scan in those passes (its record's ``launches``).
 10. The back end and multi-session SLAM, at the reference tests' own
    sizes: PGO-CG on tests/test_pgo.py's 4,096-node graph (a 300 m circle,
    odometry drifting by PGO_DRIFT a step, 31 loops to node 0; 6 GN steps
@@ -511,7 +523,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> list:
-    """Every kernel's launches since the last ``reset_counts``, B1-B8, K1, K2."""
+    """Every kernel's launches since the last ``reset_counts``, B1-B8, K1-K3."""
     from sgtd_tpu_torch.ops import launch_counts
 
     return launch_counts()
@@ -1536,6 +1548,147 @@ def check_kabsch_on_path(calls: dict, thr: float, min_votes: int) -> None:
         check_k2(name, votes_plain, *k1["want"], vq, vdb, pv, cv, thr, min_votes, polished_min=1)
 
 
+HDL64_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs", "hdl64.json")
+GROUPED_ROWS, GROUPED_SLOTS = 131072, 256  # hdl64.scan.b1: max_points, DcvcConfig().max_clusters
+
+
+def hdl64_scan(seed: int):
+    """One labeled map scan of the cell ``hdl64.scan.b1``'s kind
+    (``portbench/gen/scans.py`` at the hdl64 configuration's ``scans``
+    block), padded: points (N, 3) float32, sem, inst (N,) int32 (no
+    instance ids), mask (N,) bool, NumPy arrays."""
+    from portbench.gen import scans, world
+
+    with open(HDL64_CONFIG) as f:
+        cfg = json.load(f)
+    wd = world.make_world(np.random.default_rng(seed), extent_m=cfg["world"]["extent_m"], num_map_frames=8,
+                          num_queries=1)
+    p, sem = scans.render(wd, wd.map_poses[seed % 8], [seed, 5], cfg["scans"])
+    n = cfg["scans"]["max_points"]
+    out = np.zeros((n, 3), np.float32), np.zeros(n, np.int32), np.zeros(n, np.int32), np.zeros(n, bool)
+    out[0][: len(p)], out[1][: len(p)], out[3][: len(p)] = p, sem, True
+    return out
+
+
+def grouped_calls(dev, scan) -> list:
+    """The (points, slot, S) of each call K3 gets from ``build_graph`` on
+    one scan on the card: DCVC's, then the instance grouping's."""
+    from sgtd_tpu_torch.graph import build
+    from sgtd_tpu_torch.ops import grouped
+
+    calls, real = [], grouped.grouped_sums
+
+    def record(points, slot, s):
+        calls.append((points, slot, s))
+        return real(points, slot, s)
+
+    with mock.patch.object(grouped, "grouped_sums", record):
+        build.build_graph(*(torch.from_numpy(a).to(dev) for a in scan), np.eye(4, dtype=np.float32))
+    return calls
+
+
+def grouped_problem(rng, n: int, s: int, kept: float, dev):
+    """(points (N, 3) float32, slot (N,) int32) as a scan's clusters lie:
+    runs of 50-2,000 consecutive rows a slot, a share ``kept`` of the rows
+    in runs; of the rows left out, a tenth at slot S and a tenth at int32's
+    largest (slots past S), the others -1."""
+    slot = np.full(n, -1, np.int32)
+    i = 0
+    while i < n:
+        run = int(rng.integers(50, 2000))
+        if rng.uniform() < kept:
+            slot[i : i + run] = rng.integers(0, s)
+        i += run
+    u = rng.uniform(size=n)
+    slot[(slot < 0) & (u < 0.1)] = s
+    slot[(slot < 0) & (u > 0.9)] = np.iinfo(np.int32).max
+    points = (rng.normal(size=(n, 3)) * np.array([30.0, 30.0, 2.0])).astype(np.float32)
+    return torch.from_numpy(points).to(dev), torch.from_numpy(slot).to(dev)
+
+
+def check_grouped(name: str, points, slot, s: int) -> dict:
+    """K3 against its plain version on the same card and on the CPU, bit
+    for bit, and two launches for the same bits; returns what the slots
+    ask: rows kept and left out, the largest slot."""
+    from sgtd_tpu_torch.ops import grouped
+
+    got = grouped.grouped_sums(points, slot, s)
+    again = grouped.grouped_sums(points, slot, s)
+    want = grouped.grouped_sums_plain(points, slot, s)
+    want_cpu = grouped.grouped_sums_plain(points.cpu(), slot.cpu(), s)
+    torch.cuda.synchronize()
+    bits = lambda x: x.contiguous().view(torch.int32).cpu()  # noqa: E731
+    for key, a, b, c, d in zip(("counts", "sums", "sq"), got, want, again, want_cpu):
+        if a.shape != b.shape or not (torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))
+                                      and torch.equal(bits(a), bits(d))):
+            fail(f"K3 [{name}]: {key} differs from the plain version's bits on the card "
+                 f"({int((bits(a) != bits(b)).sum())} entries) or on the CPU ({int((bits(a) != bits(d)).sum())}), "
+                 f"or between two launches")
+    keep = ((slot >= 0) & (slot < s)).cpu().numpy()
+    sizes = np.bincount(slot.cpu().numpy()[keep], minlength=s)
+    return {"rows": len(keep), "kept": int(keep.sum()), "dropped": int((~keep).sum()), "largest_slot": int(sizes.max())}
+
+
+def grouped_nbytes(kept: int, s: int) -> int:
+    """What K3 must move: each kept row's order entry (8 bytes) and point
+    (12) read once, each slot's five float32 sums written once."""
+    return 20 * kept + 20 * s
+
+
+def check_grouped_kernel(dev, card: str) -> dict:
+    """Phase 2, K3: against its plain version (``check_grouped``) at the
+    cell's shape, with no row left out and at S 1; then on the two calls
+    ``build_graph`` makes on one scan of the cell's kind, timed there:
+    the body (sorted inputs made beforehand) and the wrapper by CUDA events
+    behind a device spin, the plain version and one ``torch.segment_reduce``
+    call over the sorted columns (``library_ms``) by synchronized events.
+    Returns the kernel record (DCVC's call first; both under ``shapes``)."""
+    from sgtd_tpu_torch.ops import grouped
+    from sgtd_tpu_torch.utils import segment_plan, sq_norm_fma
+
+    rng = np.random.default_rng(SEED + 20)
+    n, s = GROUPED_ROWS, GROUPED_SLOTS
+    for name, shape, kept in (("the cell's shape", (n, s), 0.15), ("no row left out", (n, s), 1.0),
+                              ("S 1", (4099, 1), 0.5)):
+        points, slot = grouped_problem(rng, *shape, kept, dev)
+        got = check_grouped(name, points, slot, shape[1])
+        if (kept == 0.15 and got["dropped"] <= 0.8 * n) or (kept == 1.0 and got["dropped"]):
+            fail(f"K3 [{name}]: {got['dropped']} of {got['rows']} rows left out")
+        log(f"   K3 [{name}]: the plain version's bits on the card and the CPU, same bits twice; {got} [{card}]")
+    calls = grouped_calls(dev, hdl64_scan(SEED))
+    if [c[2] for c in calls] != [s, s]:
+        fail(f"K3: build_graph made {len(calls)} calls, slots {[c[2] for c in calls]}, not two of {s}")
+    shapes = {}
+    for label, (points, slot, s) in zip(("dcvc.stats", "graph.gt_group"), calls):
+        got = check_grouped(label, points, slot, s)
+        sorted_slot, order = torch.sort(slot, stable=True)
+        out = points.new_empty((s,)), points.new_empty((s, 3)), points.new_empty((s,))
+        ms = body_ms("sgtd_grouped_sums", dev, points.data_ptr(), sorted_slot.data_ptr(), order.data_ptr(),
+                     *(o.data_ptr() for o in out), len(slot), s)
+        wrapper_ms = event_ms(lambda: grouped.grouped_sums(points, slot, s), 20)
+        plain_ms = event_ms(lambda: grouped.grouped_sums_plain(points, slot, s), 3, spin=False)
+        seg = torch.where((slot >= 0) & (slot < s), slot, s)
+        plan = segment_plan(seg, s + 1)
+        cols = torch.cat([(seg < s).float()[:, None], points, sq_norm_fma(points)[:, None]], 1)[plan.order]
+        library_ms = event_ms(lambda: torch.segment_reduce(cols, "sum", lengths=plan.lengths, axis=0), 3, spin=False)
+        nbytes = grouped_nbytes(got["kept"], s)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        shapes[label] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes, **got}
+        log(f"   K3 [{label}, one hdl64 scan]: {got}; kernel body {ms:.4f} ms, wrapper (sort and launch) "
+            f"{wrapper_ms:.4f} ms (CUDA events behind a device spin), plain {plain_ms:.4f} ms, one "
+            f"torch.segment_reduce {library_ms:.4f} ms (synchronized); bound {bound:.5f} ms by bytes ({nbytes} "
+            f"bytes: {bound / ms:.3f} of the body) [{card}]")
+    first = shapes["dcvc.stats"]
+    rec = kernel_record("grouped_sums", "grouped.cu",
+                        "none: plain jax.ops.segment_sum, sgtd_tpu/cluster/dcvc.py and sgtd_tpu/graph/build.py", 0.0,
+                        first["ms"], first["plain_ms"], first["bytes"], 0, library_ms=first["library_ms"],
+                        wrapper_ms=first["wrapper_ms"])
+    rec["shapes"] = shapes
+    log_bound(rec)
+    return rec
+
+
 def check_kernels(dev, card: str):
     """Phase 2: each kernel against its plain version at the bench shapes."""
     from sgtd_tpu_torch.ops import expand, probe, verify
@@ -2550,7 +2703,7 @@ def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scan
         results = [run(q, s) for q, s in zip(chunks, sl)]
         torch.cuda.synchronize()
         counts = read_counts()
-        log(f"fused refined path kernel launches (B1-B8, K1, K2): {counts}")
+        log(f"fused refined path kernel launches (B1-B8, K1-K3): {counts}")
         n_chunks, trips = len(chunks), cfg.gicp.max_iterations
         if min(counts[:3]) <= 0 or counts[4] <= 0:
             fail(f"a kernel of the fused refined path was never launched: {counts}")
@@ -2740,7 +2893,7 @@ def large_map(dev, card: str, num_map: int):
     res1 = [localize(db, q, cfg) for q in chunks]
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"large map (1) kernel launches (B1-B8, K1, K2): {counts}")
+    log(f"large map (1) kernel launches (B1-B8, K1-K3): {counts}")
     if counts[0] != 0 or counts[5] <= 0 or min(counts[1:3]) <= 0:
         fail(f"large map (1): B2, B3 and B6 must launch and B1 must not: {counts}")
     sr1 = outcome(res1, "(1)")
@@ -3064,7 +3217,7 @@ def cli_on_files(dev, card: str) -> int:
         want = summaries["gicp", "build"]
         if any(out_g[k] != want[k] for k in ACCURACY_KEYS):
             fail(f"in-process evaluate (gicp) {out_g} differs from the CLI's {want}")
-        log(f"in-process evaluate, gicp: equal to the CLI's summary on {ACCURACY_KEYS}; launches (B1-B8, K1, K2) {counts_g}")
+        log(f"in-process evaluate, gicp: equal to the CLI's summary on {ACCURACY_KEYS}; launches (B1-B8, K1-K3) {counts_g}")
         if min(counts_g[:5]) <= 0:
             fail(f"in-process evaluate (gicp): a kernel of the path was never launched: {counts_g}")
 
@@ -3116,7 +3269,7 @@ def cli_on_files(dev, card: str) -> int:
         counts_v = read_counts()
         log(f"in-process evaluate, vgicp: SR {out_v['success_rate']:.4f} (CLI {sr_v:.4f}), "
             f"{1e3 / out_v['mean_time_ms']:.2f} scans/s steady state (chunk {CHUNK}, rerank_k {RERANK_K}, "
-            f"synchronized per chunk), launches (B1-B8, K1, K2) {counts_v} [{card}]")
+            f"synchronized per chunk), launches (B1-B8, K1-K3) {counts_v} [{card}]")
         if min(counts_v[i] for i in (0, 1, 2, 4)) <= 0 or counts_v[3] or counts_v[6]:
             fail(f"in-process evaluate (vgicp): B1-B3 and B5 must launch, B4 and B7 not: {counts_v}")
         if any(out_v[k] != summaries["vgicp", "build"][k] for k in ACCURACY_KEYS):
@@ -3248,7 +3401,7 @@ def hard_world(dev, card: str) -> list:
             outs[name] = runner.evaluate(index, queries, **kw)
             counts = read_counts()
             table(name, outs[name])
-            log(f"hard world {name} kernel launches (B1-B8, K1, K2): {counts}")
+            log(f"hard world {name} kernel launches (B1-B8, K1-K3): {counts}")
             if (counts[6] > 0) != fused or counts[3] <= 0:
                 fail(f"hard world {name}: B7 must launch only when fused, B4 always: {counts}")
             # The frame each query's pose was refined against: the rerank's pick.
@@ -3534,7 +3687,8 @@ def build_map_split(dev, scans: list, labels: list) -> dict:
 
 def frontend(dev, card: str):
     """Phase 9: the front end on the card. Returns (B5's launches on FEC's
-    path, B5's record at FEC's shape)."""
+    path, B5's record at FEC's shape, K3's launches in the in-process
+    build-map passes)."""
     import contextlib
     import io
     import tempfile
@@ -3593,7 +3747,7 @@ def frontend(dev, card: str):
         if trunc or out["success_rate"] < SR_GATE or min(counts[:3]) < 1:
             fail(f"localize on the built graphs: SR {out['success_rate']}, {trunc} TRUNC_SCAN, launches {counts}")
         log(f"localize on the built graphs: SR {out['success_rate']:.4f} (gate {SR_GATE}), R@1 {out['recall_at_1']}, "
-            f"TRUNC_SCAN 0, {out['db_rows']} DB rows, launches (B1-B8, K1, K2) {counts} [{card}]")
+            f"TRUNC_SCAN 0, {out['db_rows']} DB rows, launches (B1-B8, K1-K3) {counts} [{card}]")
 
         # A local map of the first keyframes, in process, timed.
         sub = os.path.join(root, "local")
@@ -3619,6 +3773,7 @@ def frontend(dev, card: str):
 
         # build-map in process, three passes over the map scans.
         times, sweeps = [], []
+        reset_counts()
         for k in range(3):
             dcvc.ITERATIONS = 0
             torch.cuda.synchronize()
@@ -3633,6 +3788,9 @@ def frontend(dev, card: str):
         log(f"build-map in process: {FRONT_MAP / statistics.median(times):.2f} scans/s (median of 3 passes over "
             f"{FRONT_MAP} scans: {', '.join(f'{t:.3f}' for t in times)} s, file reads and JSON writes included); "
             f"DCVC sweeps a scan {sweeps[0]:.2f} [{card}]")
+        k3_launches = read_counts()[10]
+        if k3_launches != 2 * 3 * FRONT_MAP:
+            fail(f"build-map in process: K3 launched {k3_launches} times in 3 passes over {FRONT_MAP} scans, not 2 a scan")
         split = build_map_split(dev, *(sorted(os.path.join(files[f"map_{k}"], f) for f in os.listdir(files[f"map_{k}"]))
                                        for k in ("scans", "labels")))
         log("build-map a scan, ms (median over the map scans, synchronized per stage): "
@@ -3640,7 +3798,7 @@ def frontend(dev, card: str):
         out = fec_on_b5(dev, card, os.path.join(files["map_scans"], "000000.bin"),
                         os.path.join(files["map_labels"], "000000.label"))
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return (*out, k3_launches)
 
 
 # Phase 10: the back end and multi-session SLAM on the card.
@@ -3832,7 +3990,7 @@ def backend_path(dev, card: str, bench, large) -> dict:
     counts = read_counts()
     nodes = db.frame_poses.shape[0] + SESSION_SCANS
     log(f"session correction on the bench world ({SESSION_SCANS} scans, {nodes} nodes, dense): {s_sess:.3f} s; "
-        f"kernel launches (B1-B8, K1, K2) {counts} [{card}]")
+        f"kernel launches (B1-B8, K1-K3) {counts} [{card}]")
     check_session("bench world session", res, gt_s, odom_s, REFERENCE_SESSION)
     if min(counts[:3]) <= 0:
         fail(f"bench world session: B1-B3 must launch: {counts}")
@@ -3847,7 +4005,7 @@ def backend_path(dev, card: str, bench, large) -> dict:
     res5, s5 = synced_s(lambda: localize_and_optimize_session(db5, graphs5, odom5, cfg5))
     counts5 = read_counts()
     log(f"session correction on the {db5.frame_poses.shape[0]}-keyframe map ({SESSION_SCANS_5K} scans, {nodes5} "
-        f"nodes, PCG): {s5:.3f} s; kernel launches (B1-B8, K1, K2) {counts5} [{card}]")
+        f"nodes, PCG): {s5:.3f} s; kernel launches (B1-B8, K1-K3) {counts5} [{card}]")
     check_session("large-map session", res5, gt5, odom5)
     if counts5[0] != 0 or counts5[5] <= 0 or min(counts5[1:3]) <= 0:
         fail(f"large-map session: B2, B3 and B6 must launch and B1 must not: {counts5}")
@@ -3934,7 +4092,7 @@ def multi_device(card: str, bench, bench_run: dict, large, large_run: dict, ba_r
     (``parallel.multihost_check.run_world``), on phase 3's and phase 5's DBs
     and phase 10's BA problem written under build/phase11. World A: NCCL,
     one rank; world B: gloo, 8 ranks (NCCL takes one rank a card, which a
-    2-rank NCCL world shows first). Returns every rank's launches (B1-B8, K1, K2)
+    2-rank NCCL world shows first). Returns every rank's launches (B1-B8, K1-K3)
     on world B's localizer legs."""
     from sgtd_tpu_torch.eval.metrics import success_rate
     from sgtd_tpu_torch.graph.types import SemanticGraph
@@ -4091,6 +4249,8 @@ def main() -> None:
         rec["host_us"] = costs[rec["name"]]
     log("K1 triangle_hypotheses and K2 verify_epilogue (csrc/kabsch.cu) against their plain versions:")
     kabsch_records = check_kabsch_kernels(dev, card)
+    log("K3 grouped_sums (csrc/grouped.cu) against its plain version:")
+    grouped_record = check_grouped_kernel(dev, card)
     records[7]["library_host_us"] = costs["index_select"]
     log(f"host cost of a call, us (host clock over {HOST_COST_CALLS} back-to-back calls on tiny inputs, one "
         f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "
@@ -4119,7 +4279,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         pipeline_ok = hard_world(dev, card)
         b5_vgicp_launches = cli_on_files(dev, card)
-        fec_launches, fec_rec = frontend(dev, card)
+        fec_launches, fec_rec, grouped_record["launches"] = frontend(dev, card)
         oracle_gate(oracle, pipeline_ok)
     cg_calls, ba_run = backend_path(dev, card, bench, large)
     multi_launches = multi_device(card, bench, bench_run, large, large_run, ba_run, args.scale_frames)
@@ -4133,7 +4293,7 @@ def main() -> None:
     # K1 and K2: the refined main path's (phase 4).
     for rec, n in zip(kabsch_records, kabsch_launches):
         rec["launches"] = n
-    records += kabsch_records
+    records += kabsch_records + [grouped_record]
     records[4]["map"]["launches"] = map_knn_launches
     records[4]["vgicp_launches"] = b5_vgicp_launches
     records[4]["fec_launches"] = fec_launches

@@ -27,7 +27,8 @@ float32 arithmetic as XLA:CPU compiles it, on any device:
   XLA:CPU contracts).
 
 Cluster sums run over each cluster's points in point order (the
-reference's scatter order), with no atomics on the card.
+reference's scatter order), with no atomics on the card: K3
+``ops.grouped.grouped_sums``, which never reads an unclustered point.
 
 Under the tracer (``utils.profiling``), a call is the span
 ``cluster.dcvc`` holding ``dcvc.voxels`` (coordinates, occupied voxels,
@@ -45,7 +46,8 @@ import numpy as np
 import torch
 
 from sgtd_tpu_torch.config import DcvcConfig
-from sgtd_tpu_torch.utils import fma_f32, profiling, segment_max, segment_sum, sorted_unique_head, sq_norm_fma, sqrt_rn
+from sgtd_tpu_torch.ops import grouped
+from sgtd_tpu_torch.utils import fma_f32, profiling, segment_max, sorted_unique_head, sq_norm_fma, sqrt_rn
 
 I32_MAX = 2**31 - 1
 
@@ -286,15 +288,13 @@ def dcvc_cluster(
         vox_cluster = torch.where(v_valid, slot_of_root[label.long()], -1)
         pc = torch.where(ok, vox_cluster[pslot.long()], -1)
 
-        # Per-cluster stats; slot c_max gathers the unclustered points.
-        seg = torch.where(pc >= 0, pc, c_max)
-        ones = (pc >= 0).to(torch.float32)
-        counts = segment_sum(ones, seg, c_max + 1)[:c_max]
-        sums = segment_sum(points * ones[:, None], seg, c_max + 1)[:c_max]
+        # Per-cluster stats (K3 leaves the unclustered points out); for the
+        # maxima, slot c_max gathers them.
+        counts, sums, sq = grouped.grouped_sums(points, pc, c_max)
         denom = counts.clamp(min=1.0)[:, None]
         centroids = sums / denom
-        sq = segment_sum(sq_norm_fma(points) * ones, seg, c_max + 1)[:c_max]
         density = sq / denom[:, 0] - sq_norm_fma(centroids)
+        seg = torch.where(pc >= 0, pc, c_max)
         cgroup = segment_max(torch.where(pc >= 0, g, 0), seg, c_max + 1)[:c_max]
         min_seg_arr = torch.as_tensor(min_seg, dtype=torch.float32, device=dev).expand(n)
         c_min_seg = segment_max(torch.where(pc >= 0, min_seg_arr, 0.0), seg, c_max + 1)[:c_max]

@@ -15,8 +15,8 @@ device:
     its range; attributes are the centroid and the density.
 
 Sums follow the reference's order on the CPU: segment sums point by point
-(``utils.segment_sum``), the whole-class sums as XLA:CPU's row reduction
-adds them (:func:`_xla_row_sum`), squares as FMA chains.
+(K3 ``ops.grouped.grouped_sums``), the whole-class sums as XLA:CPU's row
+reduction adds them (:func:`_xla_row_sum`), squares as FMA chains.
 
 Under the tracer (``utils.profiling``), a scan is the span ``graph.build``
 holding ``cluster.dcvc``, ``graph.gt_group``, ``graph.whole`` and
@@ -35,7 +35,8 @@ import torch
 from sgtd_tpu_torch.cluster.dcvc import ClusterResult, dcvc_cluster
 from sgtd_tpu_torch.config import CapacityConfig, DcvcConfig
 from sgtd_tpu_torch.graph.types import SemanticGraph
-from sgtd_tpu_torch.utils import profiling, segment_max, segment_sum, sorted_unique_head, sq_norm_fma
+from sgtd_tpu_torch.ops import grouped
+from sgtd_tpu_torch.utils import profiling, segment_max, sorted_unique_head, sq_norm_fma
 
 I32_MAX = 2**31 - 1
 
@@ -132,13 +133,9 @@ def _group_by_key(points: torch.Tensor, key: torch.Tensor, c_max: int, min_pts: 
     slot = torch.searchsorted(ukey, key.contiguous()).to(torch.int32)
     pc = torch.where((key != I32_MAX) & (slot < c), slot, -1)
 
-    seg = torch.where(pc >= 0, pc, c)
-    ones = (pc >= 0).to(torch.float32)
-    counts = segment_sum(ones, seg, c + 1)[:c]
-    sums = segment_sum(points * ones[:, None], seg, c + 1)[:c]
+    counts, sums, sq = grouped.grouped_sums(points, pc, c)
     denom = counts.clamp(min=1.0)[:, None]
     centroids = sums / denom
-    sq = segment_sum(sq_norm_fma(points) * ones, seg, c + 1)[:c]
     density = (sq / denom[:, 0] - sq_norm_fma(centroids)).clamp(min=0.0)
     valid = (counts > min_pts) & (ukey != I32_MAX)
     return pc, centroids, counts, density, ukey, valid

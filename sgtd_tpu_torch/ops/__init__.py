@@ -1,15 +1,15 @@
-"""Kernels (B1-B8, K1 and K2, each beside its plain PyTorch version) and
+"""Kernels (B1-B8, K1-K3, each beside its plain PyTorch version) and
 small linear algebra; the wrappers' launch counters."""
 
 import importlib
 
-# (module, counter) of every kernel's wrapper, in B1-B8, K1, K2 order: each
+# (module, counter) of every kernel's wrapper, in B1-B8, K1-K3 order: each
 # wrapper adds one where it launches its kernel, and nowhere else.
 COUNTERS = (
     ("probe", "LAUNCHES"), ("expand", "LAUNCHES"), ("verify", "LAUNCHES"),
     ("nn", "NN1_LAUNCHES"), ("nn", "KNN_LAUNCHES"), ("probe", "WIDE_LAUNCHES"),
     ("gicp", "LINEARIZE_LAUNCHES"), ("probe", "GATHER_LAUNCHES"),
-    ("kabsch", "LAUNCHES"), ("kabsch", "EPILOGUE_LAUNCHES"),
+    ("kabsch", "LAUNCHES"), ("kabsch", "EPILOGUE_LAUNCHES"), ("grouped", "LAUNCHES"),
 )
 
 
@@ -18,7 +18,7 @@ def _module(name: str):
 
 
 def launch_counts() -> list:
-    """Every kernel's launches since the last reset, B1-B8, K1, K2."""
+    """Every kernel's launches since the last reset, B1-B8, K1-K3."""
     return [getattr(_module(m), a) for m, a in COUNTERS]
 
 

@@ -42,7 +42,7 @@ from sgtd_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgtd_tpu_torch"
-SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu", "gicp.cu", "kabsch.cu")
+SOURCES = ("probe.cu", "expand.cu", "verify.cu", "nn.cu", "gicp.cu", "kabsch.cu", "grouped.cu")
 # Headers the sources include: hashed with them, never compiled alone.
 HEADERS = ("nn_common.cuh",)
 NVCC_FLAGS = (
@@ -77,6 +77,8 @@ SIGNATURES = {
     # votes, rot_h, t_h, vq, vdb, pair_valid, cand_valid, score, rot, trans,
     # inliers, polished, N, H, P, thr, min_votes, stream
     "sgtd_verify_epilogue": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # points, sorted_slot, order, counts, sums, sq, N, S, stream
+    "sgtd_grouped_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 
