@@ -615,34 +615,54 @@ CUOBJDUMP_DEFAULT = "/usr/local/cuda/bin/cuobjdump"
 
 
 def host_us(fn) -> float:
-    """Host-clock microseconds a call of ``fn``: HOST_COST_CALLS
-    back-to-back calls and one synchronize at the end, the least of
-    HOST_COST_ROUNDS such rounds after a warm-up. The host is shared and
-    its neighbours only ever add time (single rounds spread by tens of
-    percent), so the least round is the call's own cost."""
-    for _ in range(20):
-        fn()
-    rounds = []
-    for _ in range(HOST_COST_ROUNDS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HOST_COST_CALLS):
+    """Host-clock microseconds a call of ``fn``: the least of
+    ``host_us_turns``' rounds. The host is shared and its neighbours only
+    ever add time (single rounds spread by tens of percent), so the least
+    round is the call's own cost."""
+    return min(host_us_turns([fn])[0])
+
+
+def host_us_turns(fns, rounds: int = HOST_COST_ROUNDS) -> list:
+    """Host-clock microseconds a call of each of ``fns``, a list of
+    ``rounds`` readings each: a reading is HOST_COST_CALLS back-to-back
+    calls and one synchronize at the end, after a warm-up. A round takes
+    the calls in turns (through the list, then back), so that the host's
+    speed, which wanders over seconds, meets each alike."""
+    for fn in fns:
+        for _ in range(20):
             fn()
-        torch.cuda.synchronize()
-        rounds.append((time.perf_counter() - t0) / HOST_COST_CALLS * 1e6)
-    return min(rounds)
+    out = [[] for _ in fns]
+    for r in range(rounds):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_COST_CALLS):
+                fns[i]()
+            torch.cuda.synchronize()
+            out[i].append((time.perf_counter() - t0) / HOST_COST_CALLS * 1e6)
+    return out
+
+
+OPS_MODULES = ("_build", "probe", "expand", "verify", "nn", "gicp", "kabsch", "grouped")
 
 
 def host_costs(dev) -> dict:
-    """Host-clock microseconds a call (``host_us``) of each wrapper, B1-B8,
-    then of ``index_select``, on inputs so small that the device is never
-    the limit. It is the whole wrapper's host time: checks, allocations,
-    the ctypes call, and for B1, B2 and B6 the tensor operations around the
-    launch. The last entries split B8's: the allocation of its output and
-    the launch alone (entry lookup, raw stream, ctypes conversion, the
-    CUDA runtime's launch), where the tree has the launch helper."""
-    from sgtd_tpu_torch.ops import _build, expand, gicp, nn, probe, verify
+    """Host-clock microseconds a call (``host_us``) of each of
+    ``wrapper_calls``, through this tree's modules."""
+    mods = {name: importlib.import_module(f"sgtd_tpu_torch.ops.{name}") for name in OPS_MODULES}
+    return {name: host_us(fn) for name, fn in wrapper_calls(dev, mods).items()}
 
+
+def wrapper_calls(dev, mods: dict) -> dict:
+    """A call of each wrapper, B1-B8 and K1-K3, then of ``index_select``,
+    through ``mods`` (the names of ``OPS_MODULES`` -> a tree's modules), on
+    inputs so small that the device is never the limit. A call is the whole
+    wrapper's host time: checks, allocations, the ctypes call, and for B1,
+    B2 and B6 the tensor operations around the launch. The last entries
+    split B8's: the allocation of its output and the launch alone (entry
+    lookup, raw stream, ctypes conversion, the CUDA runtime's launch),
+    where the tree has the launch helper."""
+    _build, probe, expand, verify, nn, gicp, kabsch, grouped = (mods[name] for name in OPS_MODULES)
     i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     hit, frame = torch.ones((1, 64), dtype=torch.bool, device=dev), i32(1, 64)
@@ -654,6 +674,7 @@ def host_costs(dev) -> dict:
     gicp_payload = gicp.build_gicp_payload(pts, mask8, torch.eye(3, device=dev).expand(1, 8, 3, 3))
     cov6 = gicp.cov6(torch.eye(3, device=dev).expand(1, 8, 3, 3)).contiguous()
     table, idx = i32(64, 2), i32(16)
+    votes, cand, points, slot = i32(1, 2), ones4[:, 0].contiguous(), pts[0].contiguous(), i32(8)
     calls = {
         "frame_votes": lambda: probe.frame_votes(hit, frame, 8),
         "expand_jobs": lambda: expand.expand_jobs(length, payload, 16),
@@ -663,6 +684,9 @@ def host_costs(dev) -> dict:
         "frame_votes_wide": lambda: probe.frame_votes_wide(hit, frame, 8),
         "linearize_gicp": lambda: gicp.linearize_sums(eye4, pts, cov6, mask8, pts, gicp_payload),
         "gather_rows": lambda: probe.gather_rows(table, idx),
+        "triangle_hypotheses": lambda: kabsch.triangle_hypotheses(verts, verts, ones4, 2),
+        "verify_epilogue": lambda: kabsch.verify_epilogue(votes, rot, t_h, verts, verts, ones4, cand, 3.0, 1),
+        "grouped_sums": lambda: grouped.grouped_sums(points, slot, 4),
         "index_select": lambda: torch.index_select(table, 0, idx),
     }
     calls["job_offsets"] = lambda: expand.job_offsets(length)
@@ -674,7 +698,7 @@ def host_costs(dev) -> dict:
         calls["gather_rows: new_empty"] = lambda: table.new_empty((16, 2))
         calls["gather_rows: launch"] = lambda: _build.launch(
             "sgtd_gather_rows", table.device, table.data_ptr(), idx.data_ptr(), out_rows.data_ptr(), 16, 2)
-    return {name: host_us(fn) for name, fn in calls.items()}
+    return calls
 
 
 def clocks_under_load(fn) -> str:
@@ -2127,14 +2151,15 @@ def library_of(tree: str) -> str:
 
 
 def wrapper_turns(dev, card: str, tree: str):
-    """Host cost of B1's, B2's, B3's and B6's wrappers, ``tree``'s and this
-    tree's, read in this one process in turns (old, new, new, old; the
-    least of each one's two ``host_us`` readings); then B1's and B6's
-    wrappers at the bench shapes as host-clocked medians of synchronized
-    calls, in turns. ``tree``'s ``ops`` modules are loaded under other
-    module names and launch through ``tree``'s own ``ops/_build.py`` and
-    library; its ``ops/probe.py`` is returned."""
-    from sgtd_tpu_torch.ops import expand, probe, verify
+    """Host cost of every wrapper of ``wrapper_calls``, ``tree``'s and this
+    tree's, read in this one process, the two of each wrapper in turns
+    (``host_us_turns``): in one process the host's wander between
+    processes stays out, and in turns its wander within one; then B1's
+    and B6's wrappers at the bench shapes as host-clocked medians of
+    synchronized calls, in turns. ``tree``'s ``ops`` modules are loaded
+    under other module names and launch through ``tree``'s own
+    ``ops/_build.py`` and library; its ``ops/probe.py`` is returned."""
+    from sgtd_tpu_torch.ops import probe
 
     def load(name):
         path = os.path.join(tree, "sgtd_tpu_torch", "ops", f"{name}.py")
@@ -2143,49 +2168,33 @@ def wrapper_turns(dev, card: str, tree: str):
         spec.loader.exec_module(mod)
         return mod
 
-    old_build = load("_build")
-    old_expand, old_verify, old_probe = load("expand"), load("verify"), load("probe")
-    for mod in (old_expand, old_verify, old_probe):
-        mod._build = old_build
-    length = torch.ones((1, 4), dtype=torch.int32, device=dev)
-    payload = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
-    offsets = expand.job_offsets(length)
-    rot = torch.eye(3, device=dev).expand(1, 2, 3, 3).contiguous()
-    t_h, verts = torch.zeros((1, 2, 3), device=dev), torch.zeros((1, 4, 3, 3), device=dev)
-    ones4 = torch.ones((1, 4), dtype=torch.bool, device=dev)
-    hit, frame = torch.ones((1, 64), dtype=torch.bool, device=dev), torch.zeros((1, 64), dtype=torch.int32, device=dev)
-    calls = {
-        f"frame_votes, {tree}": lambda: old_probe.frame_votes(hit, frame, 8),
-        "frame_votes, this tree": lambda: probe.frame_votes(hit, frame, 8),
-        f"frame_votes_wide, {tree}": lambda: old_probe.frame_votes_wide(hit, frame, 8),
-        "frame_votes_wide, this tree": lambda: probe.frame_votes_wide(hit, frame, 8),
-        f"expand_jobs, {tree}": lambda: old_expand.expand_jobs(length, payload, 16),
-        "expand_jobs, this tree": lambda: expand.expand_jobs(length, payload, 16),
-        "expand_jobs, this tree, offsets passed": lambda: expand.expand_jobs(length, payload, 16, offsets=offsets),
-        "job_offsets": lambda: expand.job_offsets(length),
-        f"hypothesis_votes, {tree}": lambda: old_verify.hypothesis_votes(rot, t_h, verts, verts, ones4, 3.0),
-        "hypothesis_votes, this tree": lambda: verify.hypothesis_votes(rot, t_h, verts, verts, ones4, 3.0),
-    }
-    names = list(calls)
-    readings = {name: [] for name in names}
-    for name in names + names[::-1]:
-        readings[name].append(host_us(calls[name]))
-    log("   host cost in one process, in turns, us a call (least of each one's two readings): "
-        + ", ".join(f"{name} {min(r):.2f} {[round(x, 2) for x in r]}" for name, r in readings.items())
-        + f" [{card}]")
+    old = {name: load(name) for name in OPS_MODULES}
+    for name in OPS_MODULES[1:]:
+        old[name]._build = old["_build"]
+    new = {name: importlib.import_module(f"sgtd_tpu_torch.ops.{name}") for name in OPS_MODULES}
+    old_calls, new_calls = wrapper_calls(dev, old), wrapper_calls(dev, new)
+    rounds, costs = 8 * HOST_COST_ROUNDS, []
+    for name, fn in new_calls.items():
+        if name in old_calls and name != "index_select":
+            a, b = host_us_turns([old_calls[name], fn], rounds)
+            costs.append(f"{name} {min(a):.2f} -> {min(b):.2f} (median of the rounds' changes "
+                         f"{statistics.median(y - x for x, y in zip(a, b)):+.2f} us, "
+                         f"{100 * (statistics.median(y / x for x, y in zip(a, b)) - 1):+.1f}%)")
+    log(f"   host cost in one process, each wrapper's two trees in turns ({rounds} rounds each; least round), us a "
+        f"call, {tree} -> this tree: " + ", ".join(costs) + f" [{card}]")
 
     rng = np.random.default_rng(SEED + 7)
     shapes = [("frame_votes", CHUNK, 98304, 200), ("frame_votes_wide", SCALE_CHUNK, 1802240, 5000),
               ("frame_votes_wide", SCALE_CHUNK, 1802240, 20000)]
     for fn_name, b, l, f_pad in shapes:
         hit, frame = votes_inputs(rng, b, l, f_pad, "mixed", dev)
-        old_fn, new_fn = getattr(old_probe, fn_name), getattr(probe, fn_name)
+        old_fn, new_fn = getattr(old["probe"], fn_name), getattr(probe, fn_name)
         if not torch.equal(old_fn(hit, frame, f_pad), new_fn(hit, frame, f_pad)):
             fail(f"wrapper turns: {fn_name} ({b}, {l}) f_pad {f_pad}: {tree} and this tree differ")
         t_new, t_old = median_times(lambda: new_fn(hit, frame, f_pad), lambda: old_fn(hit, frame, f_pad))
         log(f"   {fn_name} ({b}, {l}) f_pad {f_pad}, wrapper in turns (median of synchronized calls): {tree} "
             f"{t_old:.4f} ms, this tree {t_new:.4f} ms [{card}]")
-    return old_probe
+    return old["probe"]
 
 
 def compare_baselines(dev, card: str, trees: list, with_host_costs: bool):
@@ -2218,11 +2227,13 @@ def compare_baselines(dev, card: str, trees: list, with_host_costs: bool):
             log(f"   host cost in turns, {name}: {trees[0]} {old:.2f} us, this tree {new:.2f} us a call "
                 f"(readings {[round(r['host_us'][name], 2) for r in runs]})")
 
+    signatures = {name: argtypes for name, _, argtypes in _build.KERNELS}
+
     def bind(path):
         lib = ctypes.CDLL(path)
         for name in ("sgtd_nn1", "sgtd_linearize_gicp", "sgtd_knn", "sgtd_gather_rows", "sgtd_expand_jobs",
                      "sgtd_hypothesis_votes", "sgtd_frame_votes", "sgtd_frame_votes_wide"):
-            getattr(lib, name).argtypes = _build.SIGNATURES[name]
+            getattr(lib, name).argtypes = signatures[name]
             getattr(lib, name).restype = ctypes.c_int
         return lib
 
@@ -3590,6 +3601,7 @@ def fec_on_b5(dev, card: str, scan_file: str, label_file: str):
     from sgtd_tpu_torch.cluster import fec
     from sgtd_tpu_torch.io.readers import read_bin, read_label
     from sgtd_tpu_torch.ops import nn
+    from sgtd_tpu_torch.utils import profiling
 
     pts, (sem, _) = read_bin(scan_file)[:, :3], read_label(label_file)
     cls = int(np.bincount(sem[sem != 10]).argmax())
@@ -3601,12 +3613,14 @@ def fec_on_b5(dev, card: str, scan_file: str, label_file: str):
     mask[:n] = True
     args = (points, mask, FEC_TOL_M, FEC_MIN_SIZE, FEC_MAX_N)
     reset_counts()
-    fec.ITERATIONS = 0
+    tracer = profiling.enable()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = fec.fec_cluster(*args)
     torch.cuda.synchronize()
-    fec_s, launches, sweeps = time.perf_counter() - t0, read_counts()[4], fec.ITERATIONS
+    fec_s, launches = time.perf_counter() - t0, read_counts()[4]
+    profiling.disable()
+    (sweeps,) = [v for _, v in tracer.counters["fec.sweeps"]]
     if launches < 1:
         fail(f"FEC: B5 never launched on its path ({launches})")
     with mock.patch.object(nn, "knn", nn.knn_plain):
@@ -3694,13 +3708,13 @@ def frontend(dev, card: str):
     import tempfile
 
     from sgtd_tpu_torch import cli
-    from sgtd_tpu_torch.cluster import dcvc
     from sgtd_tpu_torch.config import SGTDConfig
     from sgtd_tpu_torch.eval import runner
     from sgtd_tpu_torch.graph.types import stack_graphs
     from sgtd_tpu_torch.io.graph_json import read_graph_dir
     from sgtd_tpu_torch.match.pipeline import localize
     from sgtd_tpu_torch.match.search import TRUNC_SCAN
+    from sgtd_tpu_torch.utils import profiling
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
@@ -3775,7 +3789,7 @@ def frontend(dev, card: str):
         times, sweeps = [], []
         reset_counts()
         for k in range(3):
-            dcvc.ITERATIONS = 0
+            tracer = profiling.enable() if k == 0 else None  # the sweeps of the first pass
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
@@ -3784,10 +3798,12 @@ def frontend(dev, card: str):
                           "--device", str(dev)])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            sweeps.append(dcvc.ITERATIONS / FRONT_MAP)
+            if tracer is not None:
+                profiling.disable()
+                sweeps.append(sum(v for _, v in tracer.counters["dcvc.sweeps"]) / FRONT_MAP)
         log(f"build-map in process: {FRONT_MAP / statistics.median(times):.2f} scans/s (median of 3 passes over "
             f"{FRONT_MAP} scans: {', '.join(f'{t:.3f}' for t in times)} s, file reads and JSON writes included); "
-            f"DCVC sweeps a scan {sweeps[0]:.2f} [{card}]")
+            f"DCVC sweeps a scan {sweeps[0]:.2f} (the first pass, traced) [{card}]")
         k3_launches = read_counts()[10]
         if k3_launches != 2 * 3 * FRONT_MAP:
             fail(f"build-map in process: K3 launched {k3_launches} times in 3 passes over {FRONT_MAP} scans, not 2 a scan")
@@ -4251,6 +4267,7 @@ def main() -> None:
     kabsch_records = check_kabsch_kernels(dev, card)
     log("K3 grouped_sums (csrc/grouped.cu) against its plain version:")
     grouped_record = check_grouped_kernel(dev, card)
+    grouped_record["host_us"] = costs["grouped_sums"]
     records[7]["library_host_us"] = costs["index_select"]
     log(f"host cost of a call, us (host clock over {HOST_COST_CALLS} back-to-back calls on tiny inputs, one "
         f"synchronize at the end, least of {HOST_COST_ROUNDS} rounds): "

@@ -7,10 +7,11 @@ coordinates (radial bins of shrinking width, pitch and azimuth bins of
 ``delta_p`` / ``delta_a`` degrees, the point's group packed into the voxel
 id so clusters never span classes), occupied voxels are found by
 sort/unique, their 26-connected components by min-label propagation with
-pointer jumping, and components become cluster slots, largest first, with
-centroids, densities and the ``min_seg`` filter. Azimuth neighbours wrap
-around 360 degrees; the reference C++'s asymmetric ``ax > 300`` clamp is
-not reproduced (neither does the JAX package).
+pointer jumping (``cluster.components``, shared with FEC), and components
+become cluster slots, largest first, with centroids, densities and the
+``min_seg`` filter. Azimuth neighbours wrap around 360 degrees; the
+reference C++'s asymmetric ``ax > 300`` clamp is not reproduced (neither
+does the JAX package).
 
 Voxel coordinates decide clusters, so they follow the JAX reference's
 float32 arithmetic as XLA:CPU compiles it, on any device:
@@ -45,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sgtd_tpu_torch.cluster import components
 from sgtd_tpu_torch.config import DcvcConfig
 from sgtd_tpu_torch.ops import grouped
 from sgtd_tpu_torch.utils import fma_f32, profiling, segment_max, sorted_unique_head, sq_norm_fma, sqrt_rn
@@ -59,10 +61,6 @@ _POLAR_STRIDE = _PITCH_MAX
 _AZ_STRIDE = _POLAR_MAX * _PITCH_MAX
 _GROUP_STRIDE = 512 * _AZ_STRIDE
 _GROUP_MAX = 32
-
-# Sweeps of the component propagation since the last reset (one host
-# synchronisation each); chip_smoke.py reports them a scan.
-ITERATIONS = 0
 
 
 class ClusterResult(NamedTuple):
@@ -219,7 +217,6 @@ def dcvc_cluster(
     group: optional (N,) int32 in [0, 32): points of different groups never
     join one cluster. Runs on the points' device.
     """
-    global ITERATIONS
     dev = points.device
     n = points.shape[0]
     v_max = min(cfg.max_voxels, n)
@@ -256,35 +253,19 @@ def dcvc_cluster(
         init = torch.arange(v_max, **i32)
         nslot = torch.where(n_ok, nslot, init[:, None]).long()
 
-    # Connected components: min-label propagation with pointer jumping.
-    # The fixed point (each voxel labelled by its component's smallest
-    # slot) does not depend on the order of updates.
+    # Connected components: each voxel labelled by its component's
+    # smallest slot.
     with profiling.span("dcvc.components"):
-        label = init
-        sweeps = 0
-        while True:
-            sweeps += 1
-            new = torch.minimum(label, label[nslot].min(dim=1).values)
-            new = torch.minimum(new, new[new.long()])
-            new = torch.minimum(new, new[new.long()])
-            if torch.equal(new, label):
-                break
-            label = new
-        ITERATIONS += sweeps
+        label, sweeps = components.min_labels(init, nslot)
         profiling.count("dcvc.sweeps", sweeps)
 
     with profiling.span("dcvc.stats"):
-        # Compact component roots into cluster slots, largest first (ties
-        # to the lower slot, as the reference's top_k).
+        # Compact component roots into cluster slots, largest first.
         ok_f = ok.to(torch.float32)
         pcount_v = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, pslot.long(), ok_f)
         root_pts = torch.zeros(v_max, dtype=torch.float32, device=dev).index_add_(0, label.long(), pcount_v)
         is_root = (label == init) & v_valid
-        root_score = torch.where(is_root, root_pts, -1.0)
-        top = torch.sort(root_score, descending=True, stable=True)
-        top_score, top_root = top.values[:c_max], top.indices[:c_max]
-        slot_of_root = torch.full((v_max,), -1, **i32)
-        slot_of_root[top_root] = torch.where(top_score > 0, torch.arange(top_score.shape[0], **i32), -1)
+        slot_of_root = components.root_slots(torch.where(is_root, root_pts, -1.0), c_max)
         vox_cluster = torch.where(v_valid, slot_of_root[label.long()], -1)
         pc = torch.where(ok, vox_cluster[pslot.long()], -1)
 

@@ -17,9 +17,6 @@ import torch
 
 from sgtd_tpu_torch.ops import _build
 
-# Kernel launches since the last reset (the main-path check reads it).
-LAUNCHES = 0
-
 
 def job_offsets(length: torch.Tensor) -> torch.Tensor:
     """(B, NJ) lengths -> (B, NJ + 1) int32 exclusive prefix sums."""
@@ -56,15 +53,8 @@ def expand_jobs(
 
 
 def _expand_jobs_cuda(length, payload, l_max, offsets) -> torch.Tensor:
-    global LAUNCHES
-    if length.device.type != "cuda" or payload.device != length.device:
-        raise ValueError(f"expand_jobs: CUDA tensors required, got {length.device}/{payload.device}")
-    if length.dtype != torch.int32 or payload.dtype != torch.int32:
-        raise TypeError(f"expand_jobs: int32 inputs, got {length.dtype}/{payload.dtype}")
-    if length.dim() != 2 or payload.dim() != 3 or payload.shape[:2] != length.shape:
-        raise ValueError(
-            f"expand_jobs: (B, NJ) and (B, NJ, C), got {tuple(length.shape)}/{tuple(payload.shape)}"
-        )
+    _build.check("expand_jobs", ("length", length, 2, torch.int32),
+                 ("payload", payload, length.shape + payload.shape[-1:], torch.int32))
     if l_max <= 0:
         raise ValueError(f"expand_jobs: l_max {l_max} must be positive")
     b, nj, c = payload.shape
@@ -77,5 +67,4 @@ def _expand_jobs_cuda(length, payload, l_max, offsets) -> torch.Tensor:
     out = payload.new_empty((b, c, l_max))
     _build.launch("sgtd_expand_jobs", length.device, offsets.data_ptr(), payload.data_ptr(),
                   out.data_ptr(), b, nj, c, l_max)
-    LAUNCHES += 1
     return out

@@ -30,9 +30,6 @@ import torch
 from sgtd_tpu_torch.ops import _build, nn
 from sgtd_tpu_torch.utils import batch_take
 
-# Kernel launches since the last reset (the main-path check reads them).
-LINEARIZE_LAUNCHES = 0
-
 PARTIAL = 32  # floats per block of the kernel's scratch: 30 sums, 0, 0
 ROW = 48  # floats per row of sums: H 36, g 6, y0, n_valid, sum_sqd, 0 x 3
 AUX = 16  # floats per source point of aux: b 3, M 9, w, 0 x 3
@@ -178,26 +175,17 @@ def linearize_gicp_plain(T, src, src_cov6, src_mask, tgt_eff, payload, gate: flo
 
 
 def _linearize_cuda(T, src, src_cov6, src_mask, tgt_eff, payload, gate):
-    global LINEARIZE_LAUNCHES
-    tensors = {"T": T, "src": src, "src_cov6": src_cov6, "src_mask": src_mask,
-               "tgt_eff": tgt_eff, "payload": payload}
-    for name, x in tensors.items():
-        if x.device.type != "cuda" or x.device != T.device:
-            raise ValueError(f"linearize_gicp: {name} on {x.device}, CUDA tensors on one card required")
-        want = torch.bool if name == "src_mask" else torch.float32
-        if x.dtype != want:
-            raise TypeError(f"linearize_gicp: {name} must be {want}, got {x.dtype}")
-    p, s, t = src.shape[0], src.shape[1], tgt_eff.shape[1]
-    shapes = {"T": (p, 4, 4), "src": (p, s, 3), "src_cov6": (p, s, 6), "src_mask": (p, s),
-              "tgt_eff": (p, t, 3), "payload": (p, t, 12)}
-    for name, x in tensors.items():
-        if tuple(x.shape) != shapes[name]:
-            raise ValueError(f"linearize_gicp: {name} is {tuple(x.shape)}, expected {shapes[name]}")
+    f32 = torch.float32
+    ps, pt = src.shape[:2], src.shape[:1] + tgt_eff.shape[1:2]
+    dev = _build.check("linearize_gicp", ("src", src, ps + (3,), f32), ("T", T, ps[:1] + (4, 4), f32),
+                       ("src_cov6", src_cov6, ps + (6,), f32), ("src_mask", src_mask, ps, torch.bool),
+                       ("tgt_eff", tgt_eff, pt + (3,), f32), ("payload", payload, pt + (12,), f32))
+    (p, s), t = ps, pt[1]
     if t < 1 or s < 1:
         raise ValueError(f"linearize_gicp: {s} source and {t} target points (at least 1 each)")
     nn.check_scan_grid("linearize_gicp", p, s)
-    T, src, src_cov6, src_mask, tgt_eff, payload = (x.contiguous() for x in tensors.values())
-    dev = T.device
+    tensors = (T, src, src_cov6, src_mask, tgt_eff, payload)
+    T, src, src_cov6, src_mask, tgt_eff, payload = (x.contiguous() for x in tensors)
     # One row for every block of a problem. The kernel lays the blocks out
     # itself (nn.scan_plan: 32 or 128 source points a block) and uses the
     # first rows; 32 points a block is the most it can need.
@@ -212,5 +200,4 @@ def _linearize_cuda(T, src, src_cov6, src_mask, tgt_eff, payload, gate):
         src_mask.data_ptr(), tgt_eff.data_ptr(), payload_ptr, partial.data_ptr(),
         sums.data_ptr(), aux_ptr, p, s, t, _gate2(gate),
     )
-    LINEARIZE_LAUNCHES += 1
     return sums, aux

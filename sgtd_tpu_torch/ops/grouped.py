@@ -25,9 +25,6 @@ import torch
 from sgtd_tpu_torch.ops import _build
 from sgtd_tpu_torch.utils import profiling, segment_sum, sq_norm_fma
 
-# Kernel launches since the last reset (the main-path checks read them).
-LAUNCHES = 0
-
 
 def grouped_sums_plain(points: torch.Tensor, slot: torch.Tensor, num_slots: int):
     """Plain version of K3: (counts (S,), sums (S, 3), sq (S,)) float32."""
@@ -48,17 +45,8 @@ def grouped_sums(points: torch.Tensor, slot: torch.Tensor, num_slots: int):
     out) -> (counts (S,), sums (S, 3), sq (S,)) float32, S = num_slots:
     each slot's row count, coordinate sums and sum of ``sq_norm_fma``,
     added in point order."""
-    global LAUNCHES
-    n = slot.shape[0] if slot.dim() == 1 else -1
-    if points.dtype != torch.float32 or slot.dtype != torch.int32:
-        raise TypeError(f"grouped_sums: float32 points and int32 slots required, got {points.dtype}, {slot.dtype}")
-    if n < 0 or points.shape != (n, 3):
-        raise ValueError(f"grouped_sums: points (N, 3) and slot (N,) required, got {tuple(points.shape)}, "
-                         f"{tuple(slot.shape)}")
-    dev = points.device
-    if slot.device != dev or dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"grouped_sums: CUDA tensors on one device required (or CPU for the plain version), got "
-                         f"{points.device}, {slot.device}")
+    n = slot.shape[0] if slot.ndim == 1 else -1
+    dev = _build.check("grouped_sums", ("slot", slot, 1, torch.int32), ("points", points, (n, 3), torch.float32))
     if num_slots < 1 or n >= 2**31:
         raise ValueError(f"grouped_sums: 1 or more slots and fewer than 2**31 rows required, got {num_slots}, {n}")
     keep = (slot >= 0) & (slot < num_slots)
@@ -71,5 +59,4 @@ def grouped_sums(points: torch.Tensor, slot: torch.Tensor, num_slots: int):
     counts, sums, sq = points.new_empty((num_slots,)), points.new_empty((num_slots, 3)), points.new_empty((num_slots,))
     _build.launch("sgtd_grouped_sums", dev, points.data_ptr(), sorted_slot.data_ptr(), order.data_ptr(),
                   counts.data_ptr(), sums.data_ptr(), sq.data_ptr(), n, num_slots)
-    LAUNCHES += 1
     return counts, sums, sq

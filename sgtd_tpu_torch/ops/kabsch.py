@@ -28,10 +28,6 @@ from sgtd_tpu_torch.ops import _build
 from sgtd_tpu_torch.ops.linalg3 import kabsch
 from sgtd_tpu_torch.utils import profiling, sqrt_rn
 
-# Kernel launches since the last reset (the main-path checks read them).
-LAUNCHES = 0  # K1 triangle_hypotheses
-EPILOGUE_LAUNCHES = 0  # K2 verify_epilogue
-
 # Most hypotheses a candidate, as for B3 (ops/verify.py MAX_H).
 MAX_H = 512
 
@@ -87,23 +83,9 @@ def verify_epilogue_plain(votes_h, rot_h, t_h, vq, vdb, pair_valid, cand_valid, 
     return score, rot_f, t_f, inl_b & accepted[..., None], use_ref
 
 
-def _checked(name: str, h: int, *specs) -> torch.device:
-    """The one device of the tensors of ``specs`` ((key, tensor, shape,
-    dtype) each); raise unless every tensor is there, of its dtype and its
-    shape, and unless 1 <= h <= MAX_H."""
-    dev = specs[0][1].device
-    if any(a.device != dev for _, a, _, _ in specs):
-        raise ValueError(f"{name}: tensors on one device required, got {[str(a.device) for _, a, _, _ in specs]}")
-    for key, a, shape, dtype in specs:
-        if a.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {a.dtype}")
-        if a.shape != shape:
-            raise ValueError(f"{name}: {key} of shape {shape} required, got {tuple(a.shape)}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: CUDA tensors required (or CPU for the plain version), got {dev}")
+def _check_h(name: str, h: int) -> None:
     if not 1 <= h <= MAX_H:
         raise ValueError(f"{name}: {h} hypotheses a candidate, 1 to {MAX_H} allowed")
-    return dev
 
 
 def triangle_hypotheses(vq: torch.Tensor, vdb: torch.Tensor, pair_valid: torch.Tensor, h: int):
@@ -111,11 +93,11 @@ def triangle_hypotheses(vq: torch.Tensor, vdb: torch.Tensor, pair_valid: torch.T
     query and DB triangle; pair_valid (..., P) bool -> (rot_h (..., H, 3,
     3), t_h (..., H, 3)) float32: hypothesis k solves pair
     min(k * (n_pairs // H + 1), P - 1), n_pairs the valid pairs."""
-    global LAUNCHES
     lead, p = tuple(pair_valid.shape[:-1]), pair_valid.shape[-1]
     f32 = torch.float32
-    dev = _checked("triangle_hypotheses", h, ("vq", vq, lead + (p, 3, 3), f32), ("vdb", vdb, lead + (p, 3, 3), f32),
-                   ("pair_valid", pair_valid, lead + (p,), torch.bool))
+    dev = _build.check("triangle_hypotheses", ("vq", vq, lead + (p, 3, 3), f32),
+                       ("vdb", vdb, lead + (p, 3, 3), f32), ("pair_valid", pair_valid, lead + (p,), torch.bool))
+    _check_h("triangle_hypotheses", h)
     n = math.prod(lead)
     profiling.count("verify.kabsch_problems", n * h)
     vq, vdb, pair_valid = vq.reshape(n, p, 3, 3), vdb.reshape(n, p, 3, 3), pair_valid.reshape(n, p)
@@ -126,7 +108,6 @@ def triangle_hypotheses(vq: torch.Tensor, vdb: torch.Tensor, pair_valid: torch.T
         rot_h, t_h = vq.new_empty((n, h, 3, 3)), vq.new_empty((n, h, 3))
         _build.launch("sgtd_triangle_hypotheses", dev, vq.data_ptr(), vdb.data_ptr(), pair_valid.data_ptr(),
                       rot_h.data_ptr(), t_h.data_ptr(), n, h, p)
-        LAUNCHES += 1
     return rot_h.reshape(lead + (h, 3, 3)), t_h.reshape(lead + (h, 3))
 
 
@@ -137,13 +118,13 @@ def verify_epilogue(votes_h, rot_h, t_h, vq, vdb, pair_valid, cand_valid, thr: f
     count or -1 where rejected; rot (..., 3, 3), trans (..., 3) float32;
     inliers (..., P) bool; polished (...) bool, whether the pose came from
     the polish and not from the sampled hypothesis)."""
-    global EPILOGUE_LAUNCHES
     lead, h, p = tuple(votes_h.shape[:-1]), votes_h.shape[-1], pair_valid.shape[-1]
     f32, b = torch.float32, torch.bool
-    dev = _checked("verify_epilogue", h, ("votes_h", votes_h, lead + (h,), torch.int32),
-                   ("rot_h", rot_h, lead + (h, 3, 3), f32), ("t_h", t_h, lead + (h, 3), f32),
-                   ("vq", vq, lead + (p, 3, 3), f32), ("vdb", vdb, lead + (p, 3, 3), f32),
-                   ("pair_valid", pair_valid, lead + (p,), b), ("cand_valid", cand_valid, lead, b))
+    dev = _build.check("verify_epilogue", ("votes_h", votes_h, lead + (h,), torch.int32),
+                       ("rot_h", rot_h, lead + (h, 3, 3), f32), ("t_h", t_h, lead + (h, 3), f32),
+                       ("vq", vq, lead + (p, 3, 3), f32), ("vdb", vdb, lead + (p, 3, 3), f32),
+                       ("pair_valid", pair_valid, lead + (p,), b), ("cand_valid", cand_valid, lead, b))
+    _check_h("verify_epilogue", h)
     n = math.prod(lead)
     profiling.count("verify.kabsch_problems", n)
     args = (votes_h.reshape(n, h), rot_h.reshape(n, h, 3, 3), t_h.reshape(n, h, 3), vq.reshape(n, p, 3, 3),
@@ -158,6 +139,5 @@ def verify_epilogue(votes_h, rot_h, t_h, vq, vdb, pair_valid, cand_valid, thr: f
         _build.launch("sgtd_verify_epilogue", dev, *(a.data_ptr() for a in args), score.data_ptr(),
                       rot.data_ptr(), trans.data_ptr(), inliers.data_ptr(), polished.data_ptr(), n, h, p,
                       float(np.float32(thr)), int(min_votes))
-        EPILOGUE_LAUNCHES += 1
     return (score.reshape(lead), rot.reshape(lead + (3, 3)), trans.reshape(lead + (3,)),
             inliers.reshape(lead + (p,)), polished.reshape(lead))

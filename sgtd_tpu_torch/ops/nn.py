@@ -22,10 +22,6 @@ from sgtd_tpu_torch.ops import _build
 from sgtd_tpu_torch.utils import fma_f32 as _fma
 from sgtd_tpu_torch.utils import sq_norm_fma as _sq_norm
 
-# Kernel launches since the last reset (the main-path check reads them).
-NN1_LAUNCHES = 0
-KNN_LAUNCHES = 0
-
 MAX_K = 32  # the knn kernel's list: one entry a lane of a warp
 KNN_QUERIES_PER_BLOCK = 32  # csrc/nn.cu: kKnnWarps x kKnnQueries
 MAX_KNN_BLOCKS = (1 << 31) - 1  # grid.x of the knn kernel, problems x query tiles
@@ -151,28 +147,23 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _check_cuda(query: torch.Tensor, ref: torch.Tensor, name: str):
-    if query.device.type != "cuda" or ref.device != query.device:
-        raise ValueError(f"{name}: CUDA tensors required, got {query.device}/{ref.device}")
-    if query.dtype != torch.float32 or ref.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 points, got {query.dtype}/{ref.dtype}")
+    # The shapes are _flat's, which the plain versions share.
+    _build.check(name, ("query", query, None, torch.float32), ("ref", ref, None, torch.float32))
     batch, q, r = _flat(query, ref, name)
     return batch, q.contiguous(), r.contiguous()
 
 
 def _nn1_cuda(query: torch.Tensor, ref: torch.Tensor):
-    global NN1_LAUNCHES
     batch, q, r = _check_cuda(query, ref, "nn1")
     p, n, t = q.shape[0], q.shape[1], r.shape[1]
     check_scan_grid("nn1", p, n)
     idx = q.new_empty((p, n), dtype=torch.int32)
     sqd = q.new_empty((p, n))
     _build.launch("sgtd_nn1", q.device, q.data_ptr(), r.data_ptr(), idx.data_ptr(), sqd.data_ptr(), p, n, t)
-    NN1_LAUNCHES += 1
     return idx.reshape(batch + (n,)), sqd.reshape(batch + (n,))
 
 
 def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
-    global KNN_LAUNCHES
     batch, q, r = _check_cuda(query, ref, "knn")
     p, n, t = q.shape[0], q.shape[1], r.shape[1]
     _check_k(k, t)
@@ -182,5 +173,4 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"knn: {p} problems of {n} queries exceed the kernel's grid")
     idx = q.new_empty((p, n, k), dtype=torch.int32)
     _build.launch("sgtd_knn", q.device, q.data_ptr(), r.data_ptr(), idx.data_ptr(), p, n, t, k)
-    KNN_LAUNCHES += 1
     return idx.reshape(batch + (n, k))

@@ -12,11 +12,6 @@ import torch
 
 from sgtd_tpu_torch.ops import _build
 
-# Kernel launches since the last reset (the main-path check reads them).
-LAUNCHES = 0
-WIDE_LAUNCHES = 0
-GATHER_LAUNCHES = 0
-
 # Widest frame axis of B1 (kMaxFPad of csrc/probe.cu); B6 takes any.
 MAX_F_PAD = 2048
 
@@ -39,16 +34,14 @@ def frame_votes(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torch.Ten
     float32 holding exact integer counts, f_pad <= 2048. Ids outside
     [0, f_pad) are dropped. On the card one launch writes every count: the
     output needs no zeroing and no conversion."""
-    global LAUNCHES
     if hit.device.type == "cpu":
         return frame_votes_plain(hit, frame, f_pad)
     if not 0 < f_pad <= MAX_F_PAD:
         raise ValueError(f"frame_votes: f_pad {f_pad} outside (0, {MAX_F_PAD}]")
-    hit, frame = _checked("sgtd_frame_votes", hit, frame)
+    hit, frame = _checked("frame_votes", hit, frame)
     b, l = hit.shape
     counts = hit.new_empty((b, f_pad), dtype=torch.float32)
     _build.launch("sgtd_frame_votes", hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
-    LAUNCHES += 1
     return counts
 
 
@@ -56,27 +49,20 @@ def frame_votes_wide(hit: torch.Tensor, frame: torch.Tensor, f_pad: int) -> torc
     """:func:`frame_votes` for any f_pad >= 1 (the tally of DBs above 2048
     keyframes). Counts are int32 on the card and exact in float32 while
     each stays below 2^24, which holds for every L < 2^24 slots."""
-    global WIDE_LAUNCHES
     if hit.device.type == "cpu":
         return frame_votes_wide_plain(hit, frame, f_pad)
     if f_pad <= 0:
         raise ValueError(f"frame_votes_wide: f_pad {f_pad} must be positive")
-    hit, frame = _checked("sgtd_frame_votes_wide", hit, frame)
+    hit, frame = _checked("frame_votes_wide", hit, frame)
     b, l = hit.shape
     counts = frame.new_zeros((b, f_pad))
     _build.launch("sgtd_frame_votes_wide", hit.device, hit.data_ptr(), frame.data_ptr(), counts.data_ptr(), b, l, f_pad)
-    WIDE_LAUNCHES += 1
     return counts.to(torch.float32)
 
 
-def _checked(entry: str, hit: torch.Tensor, frame: torch.Tensor):
-    """The inputs of a tally kernel, checked and contiguous."""
-    if hit.device.type != "cuda" or frame.device != hit.device:
-        raise ValueError(f"{entry}: CUDA tensors required, got {hit.device}/{frame.device}")
-    if hit.dtype != torch.bool or frame.dtype != torch.int32:
-        raise TypeError(f"{entry}: bool hit and int32 frame, got {hit.dtype}/{frame.dtype}")
-    if hit.dim() != 2 or frame.shape != hit.shape:
-        raise ValueError(f"{entry}: (B, L) inputs, got {tuple(hit.shape)}/{tuple(frame.shape)}")
+def _checked(name: str, hit: torch.Tensor, frame: torch.Tensor):
+    """The (B, L) inputs of a tally kernel, checked and contiguous."""
+    _build.check(name, ("hit", hit, 2, torch.bool), ("frame", frame, hit.shape, torch.int32))
     return hit.contiguous(), frame.contiguous()
 
 
@@ -92,16 +78,12 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     not check them, as the reference's does not. No module of the port
     calls it (none of the reference calls its TPU counterpart, a lowering
     experiment for the probe stage's row gathers)."""
-    global GATHER_LAUNCHES
     dev = table.device
     if dev.type == "cpu":
         return gather_rows_plain(table, idx)
-    if dev.type != "cuda" or idx.device != dev:
-        raise ValueError(f"gather_rows: CUDA tensors required, got {dev}/{idx.device}")
-    if table.dtype != torch.int32 or idx.dtype != torch.int32:
-        raise TypeError(f"gather_rows: int32 table and idx, got {table.dtype}/{idx.dtype}")
-    if table.dim() != 2 or idx.dim() != 1 or table.shape[1] < 1:
-        raise ValueError(f"gather_rows: (M, W) table and (L,) idx, got {tuple(table.shape)}/{tuple(idx.shape)}")
+    _build.check("gather_rows", ("table", table, 2, torch.int32), ("idx", idx, 1, torch.int32))
+    if table.shape[1] < 1:
+        raise ValueError("gather_rows: a table of no columns")
     table, idx = table.contiguous(), idx.contiguous()
     l, w = idx.shape[0], table.shape[1]
     out = table.new_empty((l, w))
@@ -109,5 +91,4 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if w == 2 and (table_ptr % 8 or out_ptr % 8):
         raise ValueError("gather_rows: a 2-word table must be 8-byte aligned")
     _build.launch("sgtd_gather_rows", dev, table_ptr, idx.data_ptr(), out_ptr, l, w)
-    GATHER_LAUNCHES += 1
     return out

@@ -16,9 +16,6 @@ import torch
 
 from sgtd_tpu_torch.ops import _build
 
-# Kernel launches since the last reset (the main-path check reads it).
-LAUNCHES = 0
-
 # Most pairs a thread of the kernel holds (csrc/verify.cu kPairs): a warp
 # walks a candidate's pairs in tiles of 32 * PAIRS_PER_THREAD.
 PAIRS_PER_THREAD = 4
@@ -71,26 +68,16 @@ def hypothesis_votes(
 
 
 def _hypothesis_votes_cuda(rot_h, t_h, vq, vdb, pair_valid, thr) -> torch.Tensor:
-    global LAUNCHES
-    dev = rot_h.device
-    args = (rot_h, t_h, vq, vdb, pair_valid)
-    if dev.type != "cuda" or any(a.device != dev for a in args):
-        raise ValueError(f"hypothesis_votes: CUDA tensors required, got {[a.device for a in args]}")
-    if any(a.dtype != torch.float32 for a in args[:4]) or pair_valid.dtype != torch.bool:
-        raise TypeError(f"hypothesis_votes: float32 inputs, bool mask, got {[a.dtype for a in args]}")
     n, h = rot_h.shape[:2]
     p = vq.shape[1]
-    if (
-        rot_h.shape != (n, h, 3, 3) or t_h.shape != (n, h, 3)
-        or vq.shape != (n, p, 3, 3) or vdb.shape != (n, p, 3, 3)
-        or pair_valid.shape != (n, p)
-    ):
-        raise ValueError(f"hypothesis_votes: shapes {[tuple(a.shape) for a in args]}")
+    f32 = torch.float32
+    dev = _build.check("hypothesis_votes", ("rot_h", rot_h, (n, h, 3, 3), f32), ("t_h", t_h, (n, h, 3), f32),
+                       ("vq", vq, (n, p, 3, 3), f32), ("vdb", vdb, (n, p, 3, 3), f32),
+                       ("pair_valid", pair_valid, (n, p), torch.bool))
     if h > MAX_H:
         raise ValueError(f"hypothesis_votes: {h} hypotheses exceed {MAX_H}")
-    rot_h, t_h, vq, vdb, pair_valid = (a.contiguous() for a in args)
+    rot_h, t_h, vq, vdb, pair_valid = (a.contiguous() for a in (rot_h, t_h, vq, vdb, pair_valid))
     out = rot_h.new_empty((n, h), dtype=torch.int32)
     _build.launch("sgtd_hypothesis_votes", dev, rot_h.data_ptr(), t_h.data_ptr(), vq.data_ptr(),
                   vdb.data_ptr(), pair_valid.data_ptr(), out.data_ptr(), n, h, p, _thr2(thr))
-    LAUNCHES += 1
     return out

@@ -39,7 +39,7 @@ from sgtd_tpu_torch.config import CapacityConfig, DcvcConfig
 from sgtd_tpu_torch.data.synthetic import make_world
 from sgtd_tpu_torch.graph import build, local_map
 from sgtd_tpu_torch.ops import voxel
-from sgtd_tpu_torch.utils import fma_f32, sq_norm_fma, sqrt_rn
+from sgtd_tpu_torch.utils import fma_f32, profiling, sq_norm_fma, sqrt_rn
 
 torch.set_num_threads(1)
 
@@ -143,13 +143,17 @@ def test_dcvc_equals_reference(name):
     want = jdcvc.dcvc_cluster(jnp.asarray(points), jnp.asarray(mask),
                               jnp.asarray(min_seg) if isinstance(min_seg, np.ndarray) else min_seg, JDcvc(**SMALL),
                               None if group is None else jnp.asarray(group))
-    dcvc.ITERATIONS = 0
-    got = dcvc.dcvc_cluster(_t(points), _t(mask), _t(min_seg) if isinstance(min_seg, np.ndarray) else min_seg,
-                            DcvcConfig(**SMALL), None if group is None else _t(group))
+    tracer = profiling.enable()
+    try:
+        got = dcvc.dcvc_cluster(_t(points), _t(mask), _t(min_seg) if isinstance(min_seg, np.ndarray) else min_seg,
+                                DcvcConfig(**SMALL), None if group is None else _t(group))
+    finally:
+        profiling.disable()
     for f in dcvc.ClusterResult._fields:
         _assert_same(getattr(got, f), getattr(want, f), f)
     assert all(torch.equal(a, b) for a, b in zip(interop.cluster_result_from_numpy(want, "cpu"), got))
-    assert dcvc.ITERATIONS >= 1
+    (sweeps,) = [v for _, v in tracer.counters["dcvc.sweeps"]]
+    assert sweeps >= 1
     if name == "equal_counts":
         assert got.counts[got.valid].tolist() == [60] * 8 + [40] * 4
     # The voxel coordinates themselves, against the reference's as one

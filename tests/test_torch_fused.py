@@ -27,7 +27,7 @@ from sgtd_tpu.refine import gicp as jax_gicp
 from sgtd_tpu_torch.interop import config_from_reference, to_numpy
 from sgtd_tpu_torch.config import GicpConfig
 from sgtd_tpu_torch.ops import gicp as gicp_ops
-from sgtd_tpu_torch.ops import probe
+from sgtd_tpu_torch.ops import launch_counts, probe
 from sgtd_tpu_torch.refine import gicp
 
 torch.set_num_threads(1)
@@ -89,9 +89,9 @@ def test_linearize_plain_matches_pallas(gate):
     assert 0 < n_valid < (100 if np.isfinite(gate) else smask.sum() + 1)
     # The dispatcher takes the plain version for CPU tensors, bit for bit,
     # and carries n_valid and the sum of squared distances.
-    before = gicp_ops.LINEARIZE_LAUNCHES
+    before = launch_counts()
     sums, aux = gicp_ops.linearize_sums(*args)
-    assert gicp_ops.LINEARIZE_LAUNCHES == before == 0
+    assert launch_counts() == before == [0] * 11
     H, g, y0 = gicp_ops.unpack_sums(sums)
     np.testing.assert_array_equal(H[0].numpy(), got[0])
     np.testing.assert_array_equal(aux[0].numpy(), got[3])
@@ -102,9 +102,9 @@ def test_linearize_dispatch_and_checks():
     """Any device but the CPU launches the kernel or raises."""
     z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device="meta")
     args = [z(2, 4, 4), z(2, 8, 3), z(2, 8, 6), z(2, 8, dt=torch.bool), z(2, 16, 3), z(2, 16, 12)]
-    with pytest.raises(ValueError, match="CUDA tensors on one card required"):
+    with pytest.raises(ValueError, match="CUDA tensors required, all on one device"):
         gicp_ops.linearize_gicp(*args)
-    assert gicp_ops.LINEARIZE_LAUNCHES == 0
+    assert launch_counts() == [0] * 11
 
 
 def test_linearize_all_masked_target_is_zero_and_finite():
@@ -188,7 +188,7 @@ def test_linearize_takes_more_problems_than_a_grid_axis_holds():
     for i in (0, 40000, p - 1):
         one_sums, one_aux = gicp_ops.linearize_sums(*(a[i : i + 1] for a in args))
         assert torch.equal(sums[i : i + 1], one_sums) and torch.equal(aux[i : i + 1], one_aux)
-    with pytest.raises(ValueError, match="CUDA tensors on one card required"):
+    with pytest.raises(ValueError, match="CUDA tensors required, all on one device"):
         gicp_ops._linearize_cuda(*(a.to("meta") for a in args), float("inf"))
 
 
@@ -223,11 +223,11 @@ def test_fused_align_matches_reference_and_unfused(gate):
         want = jax_gicp.gicp_align(*map(jnp.asarray, (src, smask, tgt, tmask, init)), jcfg)
     args = tuple(T(a)[None] for a in (src, smask, tgt, tmask, init))
     unfused = to_numpy(gicp.gicp_align(*args, cfg))
-    before = gicp_ops.LINEARIZE_LAUNCHES
+    before = launch_counts()
     with mock.patch.object(gicp, "_USE_FUSED_LINEARIZE", True), \
             mock.patch.object(gicp_ops, "linearize_gicp", wraps=gicp_ops.linearize_gicp) as lin:
         fused = to_numpy(gicp.gicp_align(*args, cfg))
-    assert 1 <= lin.call_count <= cfg.max_iterations and gicp_ops.LINEARIZE_LAUNCHES == before
+    assert 1 <= lin.call_count <= cfg.max_iterations and launch_counts() == before
     for other in (np.asarray(want.transform), unfused.transform[0]):
         np.testing.assert_allclose(fused.transform[0, :3, 3], other[:3, 3], atol=TRANS_ATOL)
         np.testing.assert_allclose(fused.transform[0, :3, :3], other[:3, :3], atol=ROT_ATOL)
@@ -325,7 +325,7 @@ def test_gather_rows_plain_matches_pallas(m, w, l):
     idx = rng.integers(0, m, l, dtype=np.int32)
     want = np.asarray(jax_gather_rows(jnp.asarray(table), jnp.asarray(idx)))
     got = probe.gather_rows(T(table.view(np.int32)), T(idx))
-    assert got.dtype == torch.int32 and got.shape == (l, w) and probe.GATHER_LAUNCHES == 0
+    assert got.dtype == torch.int32 and got.shape == (l, w) and launch_counts() == [0] * 11
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     with pytest.raises(ValueError, match="CUDA tensors required"):
         probe.gather_rows(torch.zeros(4, 2, dtype=torch.int32, device="meta"),

@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as smoke  # noqa: E402
 from sgtd_tpu_torch.graph.build import build_graph_arrays  # noqa: E402
-from sgtd_tpu_torch.ops import grouped  # noqa: E402
+from sgtd_tpu_torch.ops import launch_counts  # noqa: E402
 
 pytestmark = pytest.mark.card
 N, S = smoke.GROUPED_ROWS, smoke.GROUPED_SLOTS
@@ -54,10 +54,10 @@ def test_k3_gives_the_plain_versions_bits(dev, shape, kept, dropped):
 
 
 def test_build_graph_launches_k3_twice_a_scan(dev, scan):
-    before = grouped.LAUNCHES
+    before = launch_counts()[10]
     calls = smoke.grouped_calls(dev, scan)
     torch.cuda.synchronize()
-    assert grouped.LAUNCHES == before + 2 and [c[2] for c in calls] == [S, S]
+    assert launch_counts()[10] == before + 2 and [c[2] for c in calls] == [S, S]
     for label, (points, slot, s) in zip(("dcvc.stats", "graph.gt_group"), calls):
         smoke.check_grouped(label, points, slot, s)
 

@@ -20,7 +20,7 @@ import torch
 from sgtd_tpu.ops.pallas_expand import expand_jobs as jax_expand_jobs
 from sgtd_tpu.ops.pallas_probe import frame_votes as jax_frame_votes
 from sgtd_tpu.ops.pallas_verify import hypothesis_votes as jax_hypothesis_votes
-from sgtd_tpu_torch.ops import _build, expand, probe, verify
+from sgtd_tpu_torch.ops import _build, expand, launch_counts, probe, reset_launch_counts, verify
 
 torch.set_num_threads(1)
 
@@ -134,14 +134,14 @@ def test_hypothesis_votes_matches_pallas():
 
 
 def test_cpu_tensors_take_plain_versions_without_launching():
-    before = (probe.LAUNCHES, expand.LAUNCHES, verify.LAUNCHES)
+    before = launch_counts()[:3]
     probe.frame_votes(torch.ones(1, 16, dtype=torch.bool), torch.zeros(1, 16, dtype=torch.int32), 8)
     expand.expand_jobs(torch.ones(1, 4, dtype=torch.int32), torch.zeros(1, 4, 2, dtype=torch.int32), 8)
     verify.hypothesis_votes(
         torch.eye(3).expand(1, 2, 3, 3), torch.zeros(1, 2, 3), torch.zeros(1, 4, 3, 3),
         torch.zeros(1, 4, 3, 3), torch.ones(1, 4, dtype=torch.bool), 3.0,
     )
-    assert (probe.LAUNCHES, expand.LAUNCHES, verify.LAUNCHES) == before == (0, 0, 0)
+    assert launch_counts()[:3] == before == [0, 0, 0]
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain():
@@ -187,33 +187,55 @@ def _c_kind(param: str):
 
 def _declared_entry_points():
     found = {}
-    for name in _build.SOURCES:
+    for name in _build.sources():
         for entry, params in _ENTRY.findall((_build.CSRC / name).read_text()):
             assert entry not in found, f"{entry} defined twice"
             found[entry] = tuple(_c_kind(p) for p in params.split(","))
     return found
 
 
+_SIGNATURES = {name: argtypes for name, _, argtypes in _build.KERNELS}
+
+
 def test_sources_and_headers_exist_and_includes_are_hashed():
-    for name in _build.SOURCES + _build.HEADERS:
+    for name in _build.sources() + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name
     on_disk = {p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
-    assert on_disk == set(_build.SOURCES + _build.HEADERS)
-    for name in _build.SOURCES:
+    assert on_disk == set(_build.sources() + _build.HEADERS)
+    for name in _build.sources():
         local = re.findall(r'#include "([^"]+)"', (_build.CSRC / name).read_text())
         assert set(local) <= set(_build.HEADERS), (name, local)
 
 
 def test_entry_points_of_the_sources_are_the_bound_signatures():
-    assert set(_declared_entry_points()) == set(_build.SIGNATURES)
+    assert set(_declared_entry_points()) == set(_SIGNATURES)
 
 
-@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
+@pytest.mark.parametrize("entry", sorted(_SIGNATURES))
 def test_signature_matches_the_c_declaration(entry):
     """Same number of parameters, and pointer / int / float / long long
     kinds in order: a mismatch would show only as a crash on the card."""
-    assert _declared_entry_points()[entry] == _build.SIGNATURES[entry]
-    assert _build.SIGNATURES[entry][-1] is ctypes.c_void_p  # the stream, which launch() appends
+    assert _declared_entry_points()[entry] == _SIGNATURES[entry]
+    assert _SIGNATURES[entry][-1] is ctypes.c_void_p  # the stream, which launch() appends
+
+
+def test_the_kernel_table_holds_b1_to_b8_then_k1_to_k3():
+    """The table's order is launch_counts()'s, which readers index
+    (portbench/program.py: nn1 at 3, knn at 4); each row's source defines
+    its entry point, and every name a wrapper launches is a row."""
+    names = [name for name, _, _ in _build.KERNELS]
+    assert names == [f"sgtd_{k}" for k in (
+        "frame_votes", "expand_jobs", "hypothesis_votes", "nn1", "knn", "frame_votes_wide", "linearize_gicp",
+        "gather_rows", "triangle_hypotheses", "verify_epilogue", "grouped_sums")]
+    assert names.index("sgtd_nn1") == 3 and names.index("sgtd_knn") == 4
+    assert list(_build.COUNTS) == names and len(launch_counts()) == 11
+    for name, source, _ in _build.KERNELS:
+        assert (_build.CSRC / source).is_file(), source
+        assert name in dict(_ENTRY.findall((_build.CSRC / source).read_text())), (name, source)
+    launched = set()
+    for path in (_build.CSRC.parents[0] / "ops").glob("*.py"):
+        launched |= set(re.findall(r'_build\.launch\(\s*"(\w+)"', path.read_text()))
+    assert launched == set(names)
 
 
 def test_launch_appends_the_stream_and_raises_on_an_error_code(monkeypatch):
@@ -223,10 +245,21 @@ def test_launch_appends_the_stream_and_raises_on_an_error_code(monkeypatch):
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 1, raising=False)
     monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    for name in entries:
+        monkeypatch.setitem(_build.COUNTS, name, 0)
     _build.launch("sgtd_ok", torch.device("cuda", 1), 5, 6)
-    assert calls == [(5, 6, 1001)]
+    assert calls == [(5, 6, 1001)] and _build.COUNTS["sgtd_ok"] == 1
     with pytest.raises(RuntimeError, match="sgtd_bad: CUDA error 700"):
         _build.launch("sgtd_bad", torch.device("cuda", 0))
+    assert _build.COUNTS["sgtd_bad"] == 0
+
+
+def test_reset_zeroes_every_count(monkeypatch):
+    for name in list(_build.COUNTS)[::5]:
+        monkeypatch.setitem(_build.COUNTS, name, 3)
+    assert sum(launch_counts()) == 9
+    reset_launch_counts()
+    assert launch_counts() == [0] * 11
 
 
 def test_every_wrapper_launches_through_the_one_helper():
@@ -237,5 +270,5 @@ def test_every_wrapper_launches_through_the_one_helper():
             assert text.count("_cuda_getCurrentRawStream(") == 1
             continue
         assert "current_stream" not in text and "library()" not in text and "ctypes" not in text, path.name
-    for name in ("probe", "expand", "verify", "nn", "gicp", "kabsch"):
+    for name in ("probe", "expand", "verify", "nn", "gicp", "kabsch", "grouped"):
         assert "_build.launch(" in (ops / f"{name}.py").read_text(), name

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from sgtd_tpu.ops.pallas_nn import knn as jax_knn, nn1 as jax_nn1
-from sgtd_tpu_torch.ops import _build, gicp as gicp_ops, nn
+from sgtd_tpu_torch.ops import _build, gicp as gicp_ops, launch_counts, nn
 
 torch.set_num_threads(1)
 
@@ -195,10 +195,10 @@ def test_knn_rejects_k_above_ref_count_and_cpu_never_launches():
     q = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="k=5"):
         nn.knn(q, q, 5)
-    before = (nn.NN1_LAUNCHES, nn.KNN_LAUNCHES)
+    before = launch_counts()[3:5]
     nn.nn1(q, q)
     nn.knn(q, q, 2)
-    assert (nn.NN1_LAUNCHES, nn.KNN_LAUNCHES) == before == (0, 0)
+    assert launch_counts()[3:5] == before == [0, 0]
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain():

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from sgtd_tpu.ops.pallas_probe import frame_votes as jax_frame_votes
-from sgtd_tpu_torch.ops import _build, probe
+from sgtd_tpu_torch.ops import _build, launch_counts, probe
 
 torch.set_num_threads(1)
 
@@ -202,9 +202,9 @@ def test_launch_constants_of_the_source():
 def test_wrapper_on_the_cpu_is_float32_exact_and_launches_nothing():
     rng = np.random.default_rng(3)
     hit, frame = _inputs(rng, 2, 5000, 9)
-    before = probe.LAUNCHES
+    before = launch_counts()
     got = probe.frame_votes(torch.from_numpy(hit), torch.from_numpy(frame), 9)
-    assert got.dtype == torch.float32 and probe.LAUNCHES == before
+    assert got.dtype == torch.float32 and launch_counts() == before
     want = np.zeros((2, 9))
     for i in range(2):
         keep = hit[i] & (frame[i] >= 0) & (frame[i] < 9)
@@ -235,6 +235,7 @@ def test_launch_runs_on_the_tensors_device(monkeypatch, current, index):
         state["device"] = before
 
     monkeypatch.setattr(_build, "entry_points", lambda: {"sgtd_ok": lambda *a: calls.append(a) or 0})
+    monkeypatch.setitem(_build.COUNTS, "sgtd_ok", 0)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: streams.append(i) or 7, raising=False)
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: state["device"], raising=False)
     monkeypatch.setattr(torch.cuda, "device", device)

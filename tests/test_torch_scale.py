@@ -42,7 +42,7 @@ from sgtd_tpu_torch.graph.types import stack_graphs
 from sgtd_tpu_torch.match import search
 from sgtd_tpu_torch.match.pipeline import localize, localize_exact
 from sgtd_tpu_torch.match.search import TRUNC_SCAN, calibrate_scan_slots, probe_ranges
-from sgtd_tpu_torch.ops import probe
+from sgtd_tpu_torch.ops import launch_counts, probe
 
 torch.set_num_threads(1)
 
@@ -88,9 +88,9 @@ def test_frame_votes_wide_dense_counts():
 def test_frame_votes_wide_dispatch():
     """CPU tensors take the plain version without a launch; any other
     device launches the kernel or raises."""
-    before = probe.WIDE_LAUNCHES
+    before = launch_counts()[5]
     probe.frame_votes_wide(torch.ones(2, 16, dtype=torch.bool), torch.zeros(2, 16, dtype=torch.int32), 4096)
-    assert probe.WIDE_LAUNCHES == before == 0
+    assert launch_counts()[5] == before == 0
     with pytest.raises(ValueError, match="CUDA tensors required"):
         probe.frame_votes_wide(
             torch.ones(1, 16, dtype=torch.bool, device="meta"),

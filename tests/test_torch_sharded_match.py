@@ -22,7 +22,7 @@ from sgtd_tpu.parallel.mesh import shard_database as jax_shard_database
 from sgtd_tpu.parallel.sharded_match import make_sharded_localizer as jax_make_sharded_localizer
 from sgtd_tpu_torch import interop
 from sgtd_tpu_torch.match.pipeline import localize
-from sgtd_tpu_torch.ops import COUNTERS
+from sgtd_tpu_torch.ops import _build
 from sgtd_tpu_torch.parallel.multihost_check import Leg, read_outputs, run_world, write_inputs
 
 torch.set_num_threads(1)
@@ -96,7 +96,7 @@ def test_world_summary(outputs):
     for (dp, dbx), leg in LEGS.items():
         ranks = summary["legs"][Leg.parse(leg).name]
         assert [r["queries"] for r in ranks] == [8 // dp] * 4
-        assert all(r["launches"] == [0] * len(COUNTERS) for r in ranks)
+        assert all(r["launches"] == [0] * len(_build.KERNELS) for r in ranks)
         # Collectives: the vote psum and TRUNC pmax, the three gathers
         # (none on a 1-rank db dim).
         assert all(r["collective_calls"] == (5 if dbx > 1 else 0) for r in ranks)
