@@ -137,7 +137,17 @@ Phases (any failure ends the run with a non-zero exit):
    skip and pairs-a-lane choice meet on every chunk's real candidates
    (``warp_skip_share``, ``votes_work``), the refined share, the
    pose RMSE, the stage split of one chunk, map-covariance seconds and
-   steady-state scans/s.
+   steady-state scans/s. Then the LM trip as a CUDA graph
+   (``refine.gicp._graphed``) on chunks 0 and 1's real rerank inputs and
+   on chunk 0's first query (the TRUNC_SCAN fallback's shape):
+   ``gicp_align``'s fields the same bits as the same solve with its trips
+   run eagerly, on the capturing solve and a later one, and with a solve
+   on other inputs between two readings; the later solve moves the launch
+   counts as the eager one, replays once a trip and captures nothing
+   (``check_lm_graph``). Prints one trip's host us and device ms eager and
+   replayed, and the device operations a trip that the profiler sees in
+   each (``lm_trip_costs``); a replay of which the profiler sees nothing
+   fails.
 5. The large map: the world of ``tools/scale_bench.py`` (seed 2027,
    ``--scale-frames`` keyframes, default 5,000, extent max(400, 32 sqrt(N))
    m, 32 queries with centre noise 0.05 m and dropout 0.1), descriptors in
@@ -164,7 +174,8 @@ Phases (any failure ends the run with a non-zero exit):
    0.95, pick, found and refined equal to the unfused path's on all 64
    queries, poses within 2e-2 m (FUSED_POS_TOL_M) and 1e-3 rad of it, B7 launched at least
    once and at most ``max_iterations`` times a chunk and B4 exactly once
-   a chunk; one chunk re-runs with B7 patched to its plain version and
+   a chunk, counted after one chunk has captured the fused trip's graph
+   (whose warm-up trip launches B7 once); one chunk re-runs with B7 patched to its plain version and
    must give the same pick and poses within the same tolerance. Prints
    the chunk's stage split and steady-state scans/s, fused and unfused
    measured in turns.
@@ -2540,6 +2551,220 @@ def pose_gap(a: torch.Tensor, b: torch.Tensor):
     return dt, torch.arcsin(s.clamp(0, 1)).max().item()
 
 
+# The LM trip as a CUDA graph (refine.lsq.LmGraph, refine.gicp._graphed):
+# what a gicp_align result holds, and the tracer's LM counters.
+GICP_FIELDS = ("transform", "fitness", "num_inliers", "fitness_gated", "inlier_frac")
+LM_COUNTERS = ("lm.trips", "lm.live", "lm.graph_captures", "lm.graph_replays")
+LM_TRIP_REPS = 20
+
+
+def align_problem(rng, p: int, dev, noise: float = 0.05, offset: float = 0.3, init: float = 0.2,
+                  masked: float = 0.1):
+    """``p`` problems of ``gicp_align`` shaped as the rerank's (SRC_PTS
+    source and CLOUD_PTS target points), from NumPy: a mostly planar
+    target with vertical structure, the source a subsample of it with
+    ``noise`` m of noise moved by ~``offset`` m, ``masked`` of each side
+    masked, initial transforms of ~``init`` m and ~``init / 10`` rad;
+    covariances by ``point_covariances`` (B5). Returns (args, kwargs)."""
+    from sgtd_tpu_torch.config import GicpConfig
+    from sgtd_tpu_torch.geom import se3
+    from sgtd_tpu_torch.refine.gicp import point_covariances
+
+    cfg = GicpConfig()
+    tgt = np.stack([rng.uniform(-50, 50, (p, CLOUD_PTS)), rng.uniform(-50, 50, (p, CLOUD_PTS)),
+                    rng.normal(0, 0.05, (p, CLOUD_PTS))], axis=-1)
+    k = CLOUD_PTS // 4
+    tgt[:, :k, 2] = rng.uniform(0, 5, (p, k))
+    tgt[:, :k, 0] = np.round(tgt[:, :k, 0] / 5) * 5 + rng.normal(0, 0.03, (p, k))
+    pick = np.stack([rng.permutation(CLOUD_PTS)[:SRC_PTS] for _ in range(p)])
+    src = np.take_along_axis(tgt, pick[..., None], 1) + rng.normal(0, noise, (p, SRC_PTS, 3))
+    src = src - rng.normal(0, offset, (p, 1, 3))
+    xi = np.concatenate([rng.normal(0, init, (p, 3)), rng.normal(0, init / 10, (p, 3))], 1)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    src_mask = torch.from_numpy(rng.uniform(size=(p, SRC_PTS)) >= masked).to(dev)
+    tgt_mask = torch.from_numpy(rng.uniform(size=(p, CLOUD_PTS)) >= masked).to(dev)
+    src, tgt = to(src), to(tgt)
+    covs = dict(src_cov=point_covariances(src, src_mask, cfg), tgt_cov=point_covariances(tgt, tgt_mask, cfg))
+    return (src, src_mask, tgt, tgt_mask, se3.se3_exp(to(xi)), cfg), covs
+
+
+def first_query(problem):
+    """The rerank's ``gicp_align`` call (args, kwargs) cut to its first
+    query: the TRUNC_SCAN fallback's shape."""
+    cut = lambda x: x[:1] if isinstance(x, torch.Tensor) else x
+    args, kwargs = problem
+    return tuple(map(cut, args)), {k: cut(v) for k, v in kwargs.items()}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return torch.equal(a, b)
+
+
+def eager_lm():
+    """A context in which ``gicp_align``'s LM solves run their trips
+    eagerly, over the same callbacks and buffers, and not from the graph."""
+    from sgtd_tpu_torch.refine import gicp
+
+    solve = gicp._solve
+    return mock.patch.object(gicp, "_solve", lambda linearize, error, T0, cfg, graph=None:
+                             solve(linearize, error, T0, cfg))
+
+
+def traced_align(problem, eager: bool = False):
+    """``gicp_align`` on ``problem`` (args, kwargs) under a tracer,
+    synchronized: (result, the launch counts it moved, the totals of
+    LM_COUNTERS)."""
+    from sgtd_tpu_torch.refine import gicp
+    from sgtd_tpu_torch.utils import profiling
+
+    args, kwargs = problem
+    tracer = profiling.enable()
+    try:
+        c0 = read_counts()
+        with eager_lm() if eager else ExitStack():
+            out = gicp.gicp_align(*args, **kwargs)
+        torch.cuda.synchronize()
+        profiling.flush()
+        moved = [b - a for a, b in zip(c0, read_counts())]
+    finally:
+        profiling.disable()
+    return out, moved, {k: sum(v for _, v in tracer.counters.get(k, ())) for k in LM_COUNTERS}
+
+
+def check_lm_graph(name: str, problem, other=None) -> dict:
+    """``gicp_align`` on ``problem`` with its LM trips replayed from a CUDA
+    graph, against the same solve with its trips run eagerly
+    (``eager_lm``): every field the same bits on the first graphed solve
+    (which captures where the key is new) and on a second; the second
+    moves the launch counts as the eager one does, replays once a trip,
+    counts the same trips and live problems, and captures nothing. With
+    ``other`` (a problem of the same shapes) solved between two readings:
+    its own eager bits, and the first result unchanged. Returns the
+    readings."""
+    eager, eager_moved, eager_n = traced_align(problem, eager=True)
+    first, first_moved, first_n = traced_align(problem)
+    again, moved, n = traced_align(problem)
+    results = [("first", first, eager), ("second", again, eager)]
+    if other is not None:
+        other_eager = traced_align(other, eager=True)[0]
+        results += [("other", traced_align(other)[0], other_eager), ("second after other", again, eager)]
+    for label, got, want in results:
+        bad = [f for f in GICP_FIELDS if not same_bits(getattr(got, f), getattr(want, f))]
+        if bad:
+            fail(f"{name}: the graphed gicp_align ({label} solve) differs from the eager trips in {bad}")
+    if moved != eager_moved:
+        fail(f"{name}: a graphed solve moved the launch counts by {moved}, the eager trips by {eager_moved}")
+    if (n["lm.graph_captures"] or n["lm.graph_replays"] != n["lm.trips"]
+            or (n["lm.trips"], n["lm.live"]) != (eager_n["lm.trips"], eager_n["lm.live"])
+            or first_n["lm.graph_captures"] > 1 or eager_n["lm.graph_replays"]):
+        fail(f"{name}: LM counters eager {eager_n}, first graphed {first_n}, second {n}")
+    log(f"{name}: graphed gicp_align equals the eager trips bit for bit ({', '.join(GICP_FIELDS)})"
+        + (", a solve on other inputs between two readings too" if other is not None else "")
+        + f"; LM counters eager {eager_n}, first graphed {first_n}, second {n}; launches moved by a graphed "
+        f"solve {moved} (the eager's), by the first {first_moved}")
+    return {"eager": eager_n, "first": first_n, "second": n, "moved": moved, "first_moved": first_moved}
+
+
+def ranges_device(path: str, prefix: str) -> dict:
+    """Device operations and their seconds by ``record_function`` range
+    (name starting with ``prefix``) in a Chrome trace of torch.profiler,
+    each operation in the range that holds its launch (by correlation
+    id): name -> [operations, kernel seconds]."""
+    with open(path) as f:
+        data = json.load(f)
+    events = [e for e in (data["traceEvents"] if isinstance(data, dict) else data) if e.get("ph") == "X"]
+    ranges = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith(prefix)]
+    launch = {e["args"]["correlation"]: float(e["ts"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    out = {name: [0, 0.0] for name, _, _ in ranges}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launch.get(e.get("args", {}).get("correlation"))
+        for name, a, b in ranges:
+            if t is not None and a <= t <= b:
+                out[name][0] += 1
+                out[name][1] += float(e["dur"]) * 1e-6 if e.get("cat") == "kernel" else 0.0
+    return out
+
+
+def lm_trip_costs(name: str, problem, card: str) -> dict:
+    """One LM trip of ``problem``'s solve from its start state, eager
+    (``lsq.lm_trip`` over the graph's callbacks) and replayed: host us (the
+    host clock around the call, median of LM_TRIP_REPS, synchronized
+    between calls), device ms of a replay (CUDA events around it, median),
+    and in one profiler session (5 trips of each) the device operations
+    and kernel ms a trip."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sgtd_tpu_torch.refine import gicp, lsq
+
+    args, kwargs = problem
+    cfg = args[5]
+    gicp.gicp_align(*args, **kwargs)
+    g = next(reversed(gicp._GRAPHS.values()))
+    T0 = args[4].reshape(-1, 4, 4)
+    s0 = lsq.lm_start(T0)
+    consts = lsq.lm_constants(cfg.lm_max_inner, T0.dtype, T0.device)
+    eager = lambda: lsq.lm_trip(g.linearize, g.error, s0, consts, rot_eps=cfg.rot_eps, trans_eps=cfg.trans_eps,
+                                init_lambda_factor=cfg.lm_init_lambda_factor)
+    state = g.graph.start(T0)
+    replay = lambda: g.graph.replay(state)
+
+    def host_us(fn):
+        xs = []
+        for _ in range(LM_TRIP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            xs.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(xs)
+
+    def event_ms(fn):
+        xs = []
+        for _ in range(LM_TRIP_REPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            xs.append(e0.elapsed_time(e1))
+        return statistics.median(xs)
+
+    eager(), replay()
+    out = {"eager_host_us": host_us(eager), "replay_host_us": host_us(replay),
+           "eager_event_ms": event_ms(eager), "replay_event_ms": event_ms(replay)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, fn in (("lm:eager", eager), ("lm:replay", replay)):
+            for _ in range(5):
+                with record_function(label):
+                    fn()
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        seen = ranges_device(path, "lm:")
+    for label in ("eager", "replay"):
+        ops, kernel_s = seen.get(f"lm:{label}", (0, 0.0))
+        out[f"{label}_ops"], out[f"{label}_kernel_ms"] = ops / 5, kernel_s * 1e3 / 5
+    log(f"{name}: one LM trip, eager / replayed: host {out['eager_host_us']:.1f} / {out['replay_host_us']:.1f} us, "
+        f"device (events) {out['eager_event_ms']:.4f} / {out['replay_event_ms']:.4f} ms, profiler: "
+        f"{out['eager_ops']:.1f} / {out['replay_ops']:.1f} device operations, kernels "
+        f"{out['eager_kernel_ms']:.4f} / {out['replay_kernel_ms']:.4f} ms a trip [{card}]")
+    if not out["replay_ops"]:
+        fail(f"{name}: the profiler saw no device operation of a replayed trip")
+    return out
+
+
 def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=()):
     """Phase 4: the refined main path (bench.py:153-213) on the same DB."""
     from sgtd_tpu_torch.data.synthetic import render_planar_cloud
@@ -2633,6 +2858,22 @@ def refined_path(dev, card: str, cfg, db, world, queries, chunks, votes_libs=())
     log(f"plain-version (B4, B5) rerun of chunk 0: pick, refined, found equal; poses within "
         f"{dt:.3e} m / {dr:.3e} rad")
 
+    # The LM trip as a CUDA graph on chunks 0 and 1's real rerank inputs,
+    # and on chunk 0's first query (the TRUNC_SCAN fallback's shape).
+    from sgtd_tpu_torch.refine import gicp
+
+    with mock.patch.object(gicp, "gicp_align", wraps=gicp.gicp_align) as seen:
+        for i in (0, 1):
+            refined_stages(db, chunks[i], q_clouds[sl[i]], q_masks[sl[i]], map_clouds, map_masks, map_covs, cfg,
+                           RERANK_K)
+    rerank = [(c.args, c.kwargs) for c in seen.call_args_list]
+    del seen
+    check_lm_graph("LM graph, chunk 0's rerank (P 64)", rerank[0], other=rerank[1])
+    check_lm_graph("LM graph, chunk 0's first query (P 4)", first_query(rerank[0]))
+    lm_trip_costs("LM graph, chunk 0's rerank (P 64)", rerank[0], card)
+    lm_trip_costs("LM graph, chunk 0's first query (P 4)", first_query(rerank[0]), card)
+    del rerank
+
     # What B4's deferred argmin meets on this chunk's real clouds.
     with mock.patch.object(nn, "nn1", wraps=nn.nn1) as seen:
         refined_stages(*args)
@@ -2709,6 +2950,9 @@ def fused_path(dev, card: str, inputs, unfused, gts, unfused_split, unfused_scan
     unfused_picks = [refined_stages(*stage_args(i))[1] for i in range(len(chunks))]
 
     with mock.patch.object(gicp, "_USE_FUSED_LINEARIZE", True):
+        # The fused trip's graph is captured first, its warm-up trip (a
+        # launch of B7) outside the counts.
+        run(chunks[0], sl[0])
         reset_counts()
         torch.cuda.synchronize()
         results = [run(q, s) for q, s in zip(chunks, sl)]

@@ -18,12 +18,17 @@ products are plain torch (TF32 off at the entry points).
 With ``_USE_FUSED_LINEARIZE`` set, each linearization is one launch of
 kernel B7 (``ops.gicp.linearize_gicp``) in place of B4 and the chain of
 small tensor operations behind it; the final fitness pass stays B4.
+
+On a card an LM solve replays each trip as one CUDA graph (``_graphed``):
+the same kernels in the same order on buffers of the problems' tensors, so
+the same bits as the eager trip, without its few hundred launches a trip.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from collections import OrderedDict
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -32,7 +37,7 @@ from sgtd_tpu_torch.geom import se3
 from sgtd_tpu_torch.ops import gicp as gicp_ops
 from sgtd_tpu_torch.ops import nn
 from sgtd_tpu_torch.ops.linalg3 import inv3x3, sym_eig3x3
-from sgtd_tpu_torch.refine.lsq import gn_solve, lm_solve
+from sgtd_tpu_torch.refine.lsq import LmGraph, gn_solve, lm_solve
 from sgtd_tpu_torch.utils import batch_take, disable_tf32, profiling
 
 # Where masked points are displaced, so no kernel special-cases a mask.
@@ -140,9 +145,15 @@ def _error_of(src: torch.Tensor):
     return error
 
 
-def _unfused_callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg: GicpConfig):
+def _unfused_inputs(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov):
+    """What the unfused trip reads: the problems' tensors as they are."""
+    return src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov
+
+
+def _unfused_callbacks(inputs, cfg: GicpConfig):
     """linearize and error (the refine.lsq contract) on B4 ``nn1`` and
-    plain tensor operations, over P flat problems."""
+    plain tensor operations, over P flat problems (``_unfused_inputs``)."""
+    src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov = inputs
     p, s_n = src.shape[:2]
     gate = math.isfinite(cfg.max_corr_dist_m)
     gate2 = float(torch.tensor(cfg.max_corr_dist_m, dtype=torch.float32) ** 2) if gate else 0.0
@@ -179,14 +190,18 @@ def _unfused_callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, 
     return linearize, _error_of(src)
 
 
-def _gicp_align_fused(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg: GicpConfig):
-    """linearize and error on kernel B7 (reference ``_gicp_align_fused``):
-    one launch per linearization over all P problems and no tensor
-    operation behind it (H, g, y0 and the per-point b, M, w are views of
-    the kernel's outputs); error() is the unfused one, on B7's per-point
-    aux."""
-    payload = gicp_ops.build_gicp_payload(tgt, tgt_mask, tgt_cov)
-    scov6 = gicp_ops.cov6(src_cov)
+def _fused_inputs(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov):
+    """What B7's trip reads: the source covariances' six entries and the
+    targets' payload, built once a solve (reference ``_gicp_align_fused``)."""
+    return src, gicp_ops.cov6(src_cov), src_mask, tgt_eff, gicp_ops.build_gicp_payload(tgt, tgt_mask, tgt_cov)
+
+
+def _fused_callbacks(inputs, cfg: GicpConfig):
+    """linearize and error on kernel B7 over ``_fused_inputs``: one launch
+    per linearization over all P problems and no tensor operation behind it
+    (H, g, y0 and the per-point b, M, w are views of the kernel's outputs);
+    error() is the unfused one, on B7's per-point aux."""
+    src, scov6, src_mask, tgt_eff, payload = inputs
     gate = float(cfg.max_corr_dist_m)
 
     def linearize(T):
@@ -196,9 +211,53 @@ def _gicp_align_fused(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, c
     return linearize, _error_of(src)
 
 
+# The two linearizations: (the tensors a trip reads, built once a solve
+# from the problems; linearize and error over them), by _USE_FUSED_LINEARIZE.
+_LINEARIZATIONS = {False: (_unfused_inputs, _unfused_callbacks), True: (_fused_inputs, _fused_callbacks)}
+
+
+class _Graphed(NamedTuple):
+    """An LM trip's graph and what it reads: ``inputs``, buffers refilled
+    before each solve, and linearize and error over them."""
+
+    inputs: tuple
+    linearize: Callable
+    error: Callable
+    graph: LmGraph
+
+
+# LM trips on a card are CUDA graphs (refine.lsq.LmGraph), one for each key
+# of _graphed, the least recently used dropped beyond GRAPHS_KEPT: a graph
+# holds its inputs and every tensor of its trip. The rerank meets two keys,
+# its batch's and the TRUNC_SCAN fallback's single query.
+GRAPHS_KEPT = 4
+_GRAPHS: OrderedDict = OrderedDict()
+
+
+def _graphed(inputs: tuple, fused: bool, cfg: GicpConfig) -> _Graphed:
+    """The graph of the LM trip over tensors shaped as ``inputs`` (made on
+    first use, captured by its first solve), with ``inputs`` copied into
+    its buffers. Its key is what the capture fixes: each input's shape,
+    dtype and device, the linearization, and the configuration's numbers
+    that the trip reads."""
+    key = (fused, cfg.lm_max_inner, cfg.rot_eps, cfg.trans_eps, cfg.lm_init_lambda_factor, cfg.max_corr_dist_m,
+           tuple((x.shape, x.dtype, x.device) for x in inputs))
+    g = _GRAPHS.get(key)
+    if g is None:
+        buffers = tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in inputs)
+        g = _GRAPHS[key] = _Graphed(buffers, *_LINEARIZATIONS[fused][1](buffers, cfg), LmGraph())
+        while len(_GRAPHS) > GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS.move_to_end(key)
+    for buf, x in zip(g.inputs, inputs):
+        buf.copy_(x)
+    return g
+
+
 @profiling.traced("refine.lm")
-def _solve(linearize, error, T0: torch.Tensor, cfg: GicpConfig):
-    """The configured solver (``cfg.optimizer``: LM, else GN) from T0 (P, 4, 4)."""
+def _solve(linearize, error, T0: torch.Tensor, cfg: GicpConfig, graph: LmGraph | None = None):
+    """The configured solver (``cfg.optimizer``: LM, else GN) from T0 (P, 4,
+    4); LM replays ``graph`` for each trip where one is given."""
     if cfg.optimizer == "lm":
         return lm_solve(
             linearize, error, T0,
@@ -207,6 +266,7 @@ def _solve(linearize, error, T0: torch.Tensor, cfg: GicpConfig):
             rot_eps=cfg.rot_eps,
             trans_eps=cfg.trans_eps,
             init_lambda_factor=cfg.lm_init_lambda_factor,
+            graph=graph,
         )
     return gn_solve(
         linearize, T0,
@@ -247,11 +307,16 @@ def gicp_align(
     tgt_mask = tgt_mask.reshape(-1, t_n)
     tgt_cov = tgt_cov.reshape(-1, t_n, 3, 3)
     tgt_eff = _displaced(tgt, tgt_mask)
-    callbacks = _gicp_align_fused if _USE_FUSED_LINEARIZE else _unfused_callbacks
-    linearize, error = callbacks(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov, cfg)
+    fused = _USE_FUSED_LINEARIZE
+    inputs_of, callbacks = _LINEARIZATIONS[fused]
+    inputs = inputs_of(src, src_mask, src_cov, tgt, tgt_eff, tgt_mask, tgt_cov)
 
     T0 = init_transform.reshape(-1, 4, 4).to(src.dtype)
-    res = _solve(linearize, error, T0, cfg)
+    if T0.is_cuda and cfg.optimizer == "lm":
+        g = _graphed(inputs, fused, cfg)
+        res = _solve(g.linearize, g.error, T0, cfg, graph=g.graph)
+    else:
+        res = _solve(*callbacks(inputs, cfg), T0, cfg)
     T_final = res.transform
     with profiling.span("refine.fitness"):
         nn_idx, sqd = nn.nn1(_moved(src, T_final), tgt_eff)
